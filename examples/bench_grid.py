@@ -9,7 +9,7 @@ opposed to bench.py's raw batched-forward ceiling.
     N_POINTS=64 RUN_N=24000 CHAIN_L=800 python examples/bench_grid.py
 
 Environment knobs: MAX_LANES (default auto), SEGMENT (default 100),
-OUT (default /tmp/grid_bench).
+OUT (default grid_bench_out).
 """
 
 import os
@@ -34,7 +34,7 @@ def main():
     max_lanes = os.environ.get("MAX_LANES", "auto")
     if max_lanes != "auto":
         max_lanes = int(max_lanes)
-    outdir = os.environ.get("OUT", "/tmp/grid_bench")
+    outdir = os.environ.get("OUT", "grid_bench_out")
 
     rng = np.random.default_rng(0)
     pts, lls = [], []

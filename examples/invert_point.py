@@ -3,18 +3,17 @@
 __main__ example, point.py:372-423): observed Cascadia dispersion ->
 vmapped MCMC -> posterior plots.
 
-Run:  JAX_PLATFORMS=cpu python examples/invert_point.py  (or on TPU)
+Run:  JAX_PLATFORMS=cpu python examples/invert_point.py  (or on a GPU)
+
+The module-level settings double as the Cascadia fixture of bench.py and
+chip_smoke.py, so importing it needs nothing beyond the package:
+matplotlib is imported by ``main`` only.
 """
 
 import os
 import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-
-import matplotlib
-
-matplotlib.use("Agg")
-import numpy as np  # noqa: E402
 
 from pysurfinv_tpu.inversion.point import PointCascadia, PostPointCascadia  # noqa: E402
 
@@ -51,6 +50,10 @@ uncers = [0.006550350458769691, 0.005, 0.005, 0.005, 0.005, 0.005, 0.005,
 
 
 def main():
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
     runN = int(os.environ.get("RUN_N", 2400))
     chainL = int(os.environ.get("CHAIN_L", 200))
     p = PointCascadia(setting, localInfo, periods=periods, vels=vels,
@@ -66,7 +69,6 @@ def main():
     print(f"accepted {post.accFinal.sum()}/{post.N}, "
           f"min misfit {post.minMod.misfit:.3f}, "
           f"avg-model misfit {post.avgMod.misfit:.3f}")
-    import matplotlib.pyplot as plt
     post.plotDisp(ensemble=False)
     plt.savefig("example_out/dispersion.png", dpi=120)
     post.plotVsProfileGrid()

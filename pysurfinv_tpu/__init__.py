@@ -1,23 +1,23 @@
-"""pysurfinv_tpu — TPU-native surface-wave dispersion inversion framework.
+"""pysurfinv_tpu — accelerator-native surface-wave dispersion inversion.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of pySurfInv
 (reference: /root/reference): Markov-chain Monte Carlo inversion of
 Rayleigh/Love surface-wave dispersion for 1-D layered shear-velocity
 profiles, assembled over geographic grids into 3-D models.
 
-Design principles (TPU-first):
+Design principles:
   * The Thomson–Haskell / Dunkin dispersion solve is a batched,
     differentiable JAX primitive (masked ``lax.scan`` over padded layer
     stacks) instead of an f2py-wrapped Fortran subroutine per model.
   * Root finding uses uniform control flow (fine c-grid bracketing +
     fixed-iteration bisection) so thousands of models solve in lockstep
-    on the VPU.
+    on the GPU (Triton kernels, ``ops/pallas_secular.py``).
   * Group velocities and depth sensitivity kernels come from implicit
     differentiation of the secular function (AD), replacing the
     reference's eigenfunction energy integrals (surfa.f LEIGEN/REIGEN)
     and the triple-run finite-difference kernel pipeline (senskernel-1.0).
-  * MCMC chains are vmapped on-chip; geographic grid points shard across
-    a ``jax.sharding.Mesh`` over ICI.
+  * MCMC chains are vmapped on the device; geographic grid points shard
+    across the devices of a ``jax.sharding.Mesh``.
 """
 
 __version__ = "0.2.0"

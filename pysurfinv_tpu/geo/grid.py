@@ -7,7 +7,7 @@ subprocess smoothing (``model3D.py:11-14``) with:
   * a minimal GeoGrid/GeoMap pair with the same access patterns
     (``_findInd``, ``_findInd_linear_interp``, ``XX/YY``, ``zMasked``);
   * NaN-aware Gaussian smoothing as a *batched convolution on device* —
-    the TPU-native equivalent of shelling out to GMT per field: all
+    the on-device equivalent of shelling out to GMT per field: all
     (property, depth-node) maps smooth in one XLA call;
   * spherical great-circle interpolation replacing geographiclib
     geodesics for cross-sections (WGS84 vs sphere differs by < 0.5 %

@@ -5,7 +5,7 @@ posterior npz files, horizontal smoothing (parameter-space or resampled
 physical grids), Vs maps, great-circle cross sections, misfit maps and
 predicted-vs-observed phase-velocity maps.
 
-TPU-native upgrades:
+Upgrades over the reference:
   * smoothing runs as one batched on-device convolution over the whole
     (property, node) stack (geo/grid.py) instead of one GMT subprocess
     per field (model3D.py:156-159);

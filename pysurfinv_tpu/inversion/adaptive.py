@@ -24,8 +24,8 @@ exactly valid symmetric-proposal Metropolis chain:
     which targets exactly posterior x prior-indicator (the same
     convention as :mod:`pysurfinv_tpu.inversion.mala`).
 
-Warmup rows are burn-in and are not recorded; the measured win
-includes their wall time (``scripts/ab_adaptive.py``).  Rows follow
+Warmup rows are burn-in and are not recorded; wall time includes
+them.  Rows follow
 the reference npz convention (``[misfit, L, accept] + theta``), so
 PostPoint / Model3D / the parity comparator consume AM chains
 unchanged.
@@ -267,7 +267,7 @@ def tuned_rwm_point(point, outdir="MCtest_trwm", pid=None, runN=6000,
     # earlier sequential Robbins-Monro tuner; the shipped tuner is the
     # single parallel ladder segment (2*rm_steps long) below.
     """Auto-tuned random walk: the EXISTING RWM sampler with adapted
-    per-component step sizes (VERDICT r4 #4 variant (a)).
+    per-component step sizes.
 
     The reference carries hand-tuned per-parameter steps in the YAML
     (``brownian.py:7``); on the Cascadia fixture they yield ~15%
@@ -290,10 +290,9 @@ def tuned_rwm_point(point, outdir="MCtest_trwm", pid=None, runN=6000,
          ``target_acc``.  The default 0.15 (recorded acceptance lands
          ~0.11) measured the best ESS/s on the fixture — BELOW the
          textbook Gaussian-target optimum 0.234, because larger steps
-         hop between posterior modes (round-5 ladders,
-         docs/PERF_NOTES.md).
+         hop between posterior modes.
 
-    Warmup cost is SEQUENTIAL steps (lanes are free on the VPU), so
+    Warmup cost is SEQUENTIAL steps (lanes are nearly free), so
     both phases run on ``warm_lanes`` parallel lanes regardless of
     ``runN`` — 48 lanes x 128 steps pool ~3k posterior samples for
     the stds and average the acceptance estimate over 1.5k proposals
@@ -304,7 +303,7 @@ def tuned_rwm_point(point, outdir="MCtest_trwm", pid=None, runN=6000,
     IDENTICAL to the production sampler (same programs, same
     warm-started forward), so the entire ESS/step gain lands in
     ESS/s.  Writes the reference-format npz; wall time includes all
-    warmup (scripts/ab_adaptive.py measures it honestly).
+    warmup.
     """
     import time
 
@@ -453,7 +452,7 @@ def tuned_rwm_point(point, outdir="MCtest_trwm", pid=None, runN=6000,
     # teleports dominate the mean square jump) and drives the pick to
     # a degenerate ~2% acceptance (measured round 5); the acceptance
     # band around 0.23-0.36 is where the measured chain ESS actually
-    # peaks (scripts/ab_adaptive.py ladders).
+    # peaks.
     ll = np.log(cand)
     if accs[0] <= target_acc:
         lam = float(cand[0])

@@ -5,7 +5,7 @@ forward is an opaque f2py call, so no gradient of the likelihood
 exists.  Here the whole forward — layer parameterisation, thermal
 models, earth flattening, attenuation, secular function — is
 differentiable JAX, so the Metropolis-adjusted Langevin algorithm
-(MALA) comes almost for free (VERDICT r3 next #10):
+(MALA) comes almost for free:
 
     theta' = theta + (tau^2/2) M grad(log pi)(theta) + tau sqrt(M) xi
     log pi  = -chi^2_capped / 2   (+ prior indicator)
@@ -266,8 +266,7 @@ def mala_point(point, outdir="MCtest_mala", pid=None, runN=6000,
     comparator (``inversion.parity``).
 
     ``init_all``: start EVERY lane from ``initMod`` instead of uniform
-    draws.  MALA's capped drift mixes slowly (docs/PERF_NOTES.md
-    round 4), so short uniform-start chains may not descend to the
+    draws.  MALA's capped drift mixes slowly, so short uniform-start chains may not descend to the
     posterior within chainL; initMod starts isolate posterior
     correctness from burn-in for the parity gate.
     """

@@ -135,9 +135,8 @@ def _propose_batched(keys, thetas, spec_b, ctx_b, isgood, cfg: ChainConfig,
     proposal: expected rounds ~ ln(N)/p for prior pass rate p, while
     the per-lane work floor is ~1/p — the all-lanes loop wastes the
     gap on finished lanes (in-chain pass rate measured ~55% on real
-    Cascadia chains; proposals are ~1/3 of step time at 1920 lanes,
-    docs/PERF_NOTES.md).  Here, whenever the
-    unfound tail fits a 4x smaller buffer, it is compacted (argsort on
+    Cascadia chains).  Here, whenever the unfound tail fits a 4x
+    smaller buffer, it is compacted (argsort on
     the found flag + gather) and the loop continues at that size, so
     finished lanes stop consuming ``isgood`` evaluations.
 
@@ -163,8 +162,8 @@ def _propose_batched(keys, thetas, spec_b, ctx_b, isgood, cfg: ChainConfig,
 
     # A/B knobs re-read at TRACE time (ChainConfig defaults freeze the
     # env at import): a live env override wins over the config so the
-    # same-process harness (scripts/ab_grid.py, which clears the traced-
-    # program cache between variants) can vary them.
+    # same process can vary them (after clearing the traced-program
+    # cache between variants).
     def _env_int(name, default):
         v = os.environ.get(name)
         return int(v) if v is not None else int(default)
@@ -238,7 +237,7 @@ def _propose_batched(keys, thetas, spec_b, ctx_b, isgood, cfg: ChainConfig,
     # bounds per-stage overhead (argsort + gathers + while_loop cond
     # rounds): r and min_stage trade wasted isgood evaluations on
     # finished lanes against fixed per-stage cost — re-measure on-chip
-    # when the isgood graph's cost changes (env knobs for ab_grid.py).
+    # when the isgood graph's cost changes (the env knobs above).
     ratio = max(_env_int("PYSURFINV_PROPOSE_RATIO", cfg.propose_ratio), 2)
     # clamp >= 1: min_stage <= 0 would spin the pyramid-size loop forever
     # (m reaches 0 and `0 >= min_stage` stays true while m //= ratio
@@ -450,8 +449,8 @@ def make_batched_sampler(isgood, chi_sqr_batch, cfg: ChainConfig):
     Here the loop order is inverted: every lane (chain, or point x
     chain) advances one Metropolis step per ``lax.scan`` iteration, and
     all lanes' forwards evaluate in ONE ``chi_sqr_batch`` call — which
-    routes through ``surf_forward_batch`` and hence the fused Pallas
-    secular kernel on TPU (~7-10x the vmapped XLA path).
+    routes through ``surf_forward_batch`` and hence the fused secular
+    kernels on a GPU.
 
     Args:
       isgood:        (theta, ctx_lane) -> bool, single lane (vmapped

@@ -110,10 +110,9 @@ def _adjacent_flagged_pairs(flag):
     ``c = cumsum(flag)`` (inclusive), j is adjacent-after i exactly when
     both are flagged and ``c[j] == c[i] + 1``.  Replaces the
     associative-scan ``_prev_flagged`` (log2(n) select rounds x several
-    tensors) and every dynamic gather: on TPU the whole pair check
-    fuses into ~2 kernels where the scan form serialized ~14 small
-    launches per use site — the proposal-prior graph's measured hot
-    spot (docs/PERF_NOTES.md).
+    tensors) and every dynamic gather: the whole pair check fuses into
+    a couple of kernels where the scan form serialized many small
+    launches per use site.
     """
     import jax.numpy as jnp
     c = jnp.cumsum(flag.astype(jnp.int32))
@@ -166,7 +165,7 @@ def jnp_cwt_oscillation(v, z, mask, limit=0.3, max_width=None):
     for any mantle layer thinner than ~300 km, since
     ``width = 30//dz`` and ``n*dz = H``.  This removes the old static
     ``max_width=32`` cap that silently truncated the kernel for fine
-    grids with ``n > 320`` (VERDICT r3 #7).  For the remaining
+    grids with ``n > 320``.  For the remaining
     ``10*width < n`` regime (H > ~300 km) the zeroed-tail emulation is
     bit-exact iff ``n`` is even (the host kernel length ``10*width``
     is always even, so its taps sit on half-integer offsets; an odd

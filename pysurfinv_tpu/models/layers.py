@@ -23,10 +23,18 @@ from copy import deepcopy
 
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
 from pysurfinv_tpu.models.bspline import bspline_basis
 from pysurfinv_tpu.models.brownian import BrownianVar, BrownianVarMC
 from pysurfinv_tpu.utils import _dictIterModifier
+
+
+def _spline(coef, basis):
+    """B-spline profile ``coef @ basis`` at full float32 precision: on a
+    GPU an f32 product may otherwise run in TF32, whose ~1e-3 relative
+    error moves Vs by ~4e-3 km/s, the size of the parity budget."""
+    return jnp.matmul(coef, basis, precision=lax.Precision.HIGHEST)
 
 
 def _is_tracer(*vals):
@@ -190,7 +198,7 @@ class Crust(SeisLayerVs):
     def _calVs(self, z, **kwargs):
         coef = jnp.asarray(self.parm["Vs"])
         basis = self._bspl(len(z), len(self.parm["Vs"]))
-        vs = coef @ basis
+        vs = _spline(coef, basis)
         gauss = self.parm.get("Gauss", False)
         if gauss is not False:
             A, mu, sig = gauss
@@ -267,7 +275,7 @@ class OceanMantle(SeisLayerVs):
         coef = jnp.asarray(self.parm["Vs"])
         basis = self._bspl(len(z), len(self.parm["Vs"]),
                            self.parm.get("deg", None))
-        return coef @ basis
+        return _spline(coef, basis)
 
     def _calOthers(self, z, vs, **kwargs):
         n = len(z)
@@ -368,7 +376,7 @@ class OceanMantleHybrid(OceanMantle):
                                 jnp.asarray(self.parm["Vs"],
                                             dtype=jnp.result_type(float))])
         basis = self._bspl(len(z), n_basis)
-        vs_pert = coef @ basis + seis.vs
+        vs_pert = _spline(coef, basis) + seis.vs
         xL = z_melt
         xH = (z_melt + crustH) * 1.7 - crustH
         self._debug_zMelt = z_melt

@@ -1,1 +1,1 @@
-"""TPU compute core: flattening, secular functions, dispersion, kernels."""
+"""Compute core: flattening, secular functions, dispersion, kernels."""

@@ -2,7 +2,7 @@
 
 Replaces the reference's sequential bracket + Neville refinement
 (``/root/reference/fast_surf_src/calcul.f:104-223``,
-``surfa.f:2-83``) with a TPU-friendly three-phase scheme:
+``surfa.f:2-83``) with a batch-friendly three-phase scheme:
 
   1. **Bracket (sequential over periods, wide over the c-grid):** per
      period, evaluate the secular function on a coarse c-grid *in
@@ -42,8 +42,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from pysurfinv_tpu.ops.flatten import (H_MIN, flatten_factors,
-                                       model_preamble)
+from pysurfinv_tpu.ops.flatten import (H_MIN, FlatFactors,
+                                       flatten_factors, model_preamble)
 from pysurfinv_tpu.ops.secular import (
     attenuation_rescale,
     effective_halfspace,
@@ -71,10 +71,8 @@ class SurfConfig(NamedTuple):
     #                           (the last evaluation-only, yielding group
     #                           velocity from its tangents).  Default 0 =
     #                           separate Illinois launches + one tangent
-    #                           launch — measured FASTER on v5e (the fused
-    #                           kernel's plain+grad bodies together overflow
-    #                           Mosaic's per-kernel VMEM stack and spill).
-    #                           XLA path ignores this.
+    #                           launch; the GPU A/B is ROADMAP §3.  XLA
+    #                           path ignores this.
     coarse: int = 2           # warm-period sweep step, in dc.  The hit cell
     #                           is handed to the refinement at coarse*dc
     #                           width (Illinois absorbs it in ~1 extra
@@ -101,35 +99,30 @@ class SurfConfig(NamedTuple):
     flat: bool = True         # KEY_FLAT  (init.f:45)
     nmodes: int = 1           # fundamental only by default
     compute_group: bool = True  # group velocity via implicit diff
-    backend: str = "auto"     # "auto" | "xla" | "pallas" |
-    #                           "pallas_interpret".  "auto" picks the
-    #                           fused Pallas secular kernel on TPU and
-    #                           the XLA scan elsewhere; only the batched
-    #                           entry point dispatches (single-model
-    #                           surf_forward is always XLA).
+    backend: str = "auto"     # "auto" | "xla" | "xla_assoc" | "pallas"
+    #                           | "pallas_interpret".  "auto" picks the
+    #                           compiled Triton kernels on a GPU and the
+    #                           vmapped XLA oracle elsewhere, never the
+    #                           interpreter; "pallas" off a GPU raises.
+    #                           Only the batched entry point dispatches
+    #                           (single-model surf_forward is always XLA).
     fuse_illinois: bool = False  # route the nbisect Illinois iterations
     #                           through ONE refine_lanes launch (plain
-    #                           secular body only, no Newton tail, fully
-    #                           unrolled layer loop — VMEM-safe) instead
+    #                           secular body only, no Newton tail) instead
     #                           of nbisect separate frozen launches.
-    #                           Wins where per-launch overhead dominates
-    #                           the refine phase (small lane counts: the
-    #                           MCMC sampler at O(1k) lanes); at bench
-    #                           scale (65k lanes) launches are compute-
-    #                           bound and it is a wash.  Group velocity
+    #                           Meant for runs where per-launch overhead
+    #                           dominates the refine phase (small lane
+    #                           counts: the MCMC sampler at O(1k) lanes);
+    #                           its GPU A/B is ROADMAP §3.  Group velocity
     #                           still comes from the separate tangent
-    #                           launch.  Pallas batched path only.
+    #                           launch.  Kernel batched path only.
     fhandoff: bool = False    # seed the refinement with the bracket
     #                           sweep's endpoint secular values, skipping
     #                           the two Illinois init launches (and
     #                           newton_sep's sign-probe launch).  Default
-    #                           OFF: at bench scale (65k lanes) the
-    #                           sweep-side gathers/threading cost MORE
-    #                           than the removed launches — same-process
-    #                           v5e A/B: Rayleigh-alone 499-505 ms ON vs
-    #                           481-484 OFF.  Opt-in candidate for
-    #                           small-lane launch-overhead-bound runs
-    #                           (the MCMC grid sampler).  Gates ONLY the
+    #                           OFF (its GPU A/B is ROADMAP §3).  Opt-in
+    #                           candidate for small-lane launch-bound
+    #                           runs (the MCMC grid sampler).  Gates ONLY the
     #                           phase-2 refinement handoff: the between-
     #                           mode root estimate (nmodes>1) always
     #                           seeds its secant from the sweep endpoint
@@ -137,7 +130,7 @@ class SurfConfig(NamedTuple):
     #                           by the 6-mode overtone parity test).
     #                           With OFF, the phase-2 program is the
     #                           identical pre-handoff program (the unused
-    #                           gather chain is XLA dead code).  Pallas
+    #                           gather chain is XLA dead code).  Kernel
     #                           batched path only.
     wseed_nscan: int = 0      # fused c_warm sweep window span (in dc);
     #                           0 = use ``nscan``.  Lets a caller with a
@@ -156,16 +149,16 @@ class SurfConfig(NamedTuple):
     #                           artifacts flip and flip back inside one
     #                           cell), which is why the MCMC warm
     #                           window at coarse=8 never catches them
-    #                           while a dc-fine seeded sweep can —
-    #                           measured: the joint seed window at
-    #                           coarse=2 spanning [-6,+6]dc lands >1%
-    #                           of lanes ~6.5dc below the true root
-    #                           (scripts/ab_joint5.py round-5 ladder).
-    newton_sep: int = 0       # >0 replaces the refinement on the Pallas
+    #                           while a dc-fine seeded sweep can: a
+    #                           joint seed window at coarse=2 spanning
+    #                           [-6,+6]dc was seen to land >1% of lanes
+    #                           ~6.5dc below the true root.
+    newton_sep: int = 0       # >0 replaces the refinement on the kernel
     #                           batched path with this many SEPARATED
     #                           safeguarded-Newton iterations: each
     #                           iteration is ONE gradient-kernel launch
-    #                           (F, F_c, F_T at ~2.2x a plain row) whose
+    #                           (F, F_c, F_T: ~2.7x a plain row on an
+    #                           H100) whose
     #                           Newton step is clamped to the live
     #                           bracket (midpoint fallback), with the
     #                           bracket side updated from sign(F) like
@@ -177,9 +170,8 @@ class SurfConfig(NamedTuple):
     #                           group velocity for free, so the whole
     #                           refine+group phase is n_newt grad
     #                           launches.  Unlike `nnewton` (the FUSED
-    #                           refine kernel, which overflows VMEM and
-    #                           spills on v5e), each launch here is the
-    #                           already-VMEM-safe secular_lanes_grad.
+    #                           refine kernel), each launch here is the
+    #                           plain secular_lanes_grad.
     #                           nbisect is ignored when set.  The XLA
     #                           path ignores it (it is the oracle path).
 
@@ -595,20 +587,32 @@ def surf_amplitude(h, vp, vs, rho, qsinv, periods, nlay,
     return amp, c_all, ok_all
 
 
-def _pallas_backend(cfg: SurfConfig):
-    """Resolve cfg.backend to None (XLA) or an interpret flag (Pallas)."""
-    if cfg.backend in ("xla", "xla_assoc"):
+def _lane_backend(cfg: SurfConfig):
+    """Resolve ``cfg.backend`` for the batched solver: None for the
+    vmapped XLA oracle (:func:`surf_forward`), else the Triton kernels'
+    ``interpret`` flag.
+
+    "auto" takes the compiled kernels on a GPU and the oracle anywhere
+    else — never the interpreter, which only a test asks for by name
+    ("pallas_interpret").  "pallas" off a GPU is an error, not a
+    fallback.
+    """
+    backend = cfg.backend
+    if backend in ("xla", "xla_assoc"):
         return None
-    if cfg.backend == "pallas":
-        return False
-    if cfg.backend == "pallas_interpret":
+    if backend == "pallas_interpret":
         return True
-    try:
-        if jax.devices()[0].platform == "tpu":
-            return False
-    except Exception:
-        pass
-    return None
+    on_gpu = jax.default_backend() == "gpu"
+    if backend == "auto":
+        return False if on_gpu else None
+    if backend == "pallas":
+        if not on_gpu:
+            raise ValueError(
+                f"backend='pallas' needs a GPU; JAX runs on "
+                f"{jax.default_backend()!r} (use 'auto', 'xla' or "
+                f"'pallas_interpret')")
+        return False
+    raise ValueError(f"unknown SurfConfig.backend {backend!r}")
 
 
 @partial(jax.jit, static_argnames=("wave", "cfg"))
@@ -617,11 +621,12 @@ def surf_forward_batch(h, vp, vs, rho, qsinv, periods, nlay,
                        c_warm=None):
     """Batched dispersion solve over a leading model axis.
 
-    On TPU (or with ``cfg.backend`` forced) the secular-evaluation hot
-    loop runs through the fused Pallas kernel
-    (:mod:`pysurfinv_tpu.ops.pallas_secular`); otherwise this is a
-    plain vmap of :func:`surf_forward`.  Both paths share the bracket /
-    refine / implicit-diff algorithm and the same dc-cell semantics.
+    On a GPU (``cfg.backend`` "auto" or "pallas") the lane-grid solver
+    drives the compiled Triton secular kernels
+    (:mod:`pysurfinv_tpu.ops.pallas_secular`); elsewhere, or with
+    ``backend="xla"``, this is a plain vmap of :func:`surf_forward`,
+    the oracle.  Both paths share the bracket / refine / implicit-diff
+    algorithm and the same dc-cell semantics.
 
     ``periods`` may be (P,) shared across the batch, or (B, P) per
     model (the padded per-grid-point period lists of
@@ -629,7 +634,7 @@ def surf_forward_batch(h, vp, vs, rho, qsinv, periods, nlay,
 
     ``c_warm``: optional (B, P) previous-solution phase velocities (an
     MCMC sampler's roots from the last evaluated proposal; 0 = unknown).
-    When given (fundamental mode, Pallas path), the per-period
+    When given (fundamental mode, kernel path), the per-period
     bracketing collapses into ONE fused sweep seeded at
     ``c_warm - warm_backoff*dc`` — replacing the cold first-period scan
     and the sequential period chain.  Lanes whose window misses (root
@@ -638,7 +643,7 @@ def surf_forward_batch(h, vp, vs, rho, qsinv, periods, nlay,
     tolerance (~1e-5 km/s) for ANY c_warm.  The XLA fallback path
     ignores it (same roots, cold brackets).
     """
-    interp = _pallas_backend(cfg)
+    interp = _lane_backend(cfg)
     if interp is not None:
         return _surf_forward_batch_fast(h, vp, vs, rho, qsinv, periods,
                                         nlay, wave, cfg, interp,
@@ -653,6 +658,27 @@ def surf_forward_batch(h, vp, vs, rho, qsinv, periods, nlay,
             h_, vp_, vs_, rho_, q_, periods, n_, wave=wave, cfg=cfg),
         in_axes=(0, 0, 0, 0, 0, 0),
     )(h, vp, vs, rho, qsinv, nlay)
+
+
+def lane_model(h, vp, vs, rho, qsinv, nlay, wave, flat=True):
+    """(B, L) model batch -> (h_eff, model_T): thin layers zeroed, and the
+    7 transposed (L, B) arrays the lane evaluators take — (vp, vs, rho,
+    qsinv, h_flat, vel_fac, rho_fac), flattened for ``wave`` when
+    ``flat``."""
+    L = h.shape[1]
+    idx = jnp.arange(L)[None, :]
+    nl = nlay[:, None]
+    thin = (idx < nl - 1) & (h <= H_MIN)
+    h_eff = jnp.where(thin | (idx >= nl - 1), 0.0, h)
+    kind = 1 if wave in ("love", "lov", "L") else 2
+    if flat:
+        fac = jax.vmap(flatten_factors, in_axes=(0, 0, None))(
+            h_eff, nlay, kind)
+    else:
+        ones = jnp.ones_like(h_eff)
+        fac = FlatFactors(h_flat=h_eff, vel_fac=ones, rho_fac=ones)
+    return h_eff, (vp.T, vs.T, rho.T, qsinv.T,
+                   fac.h_flat.T, fac.vel_fac.T, fac.rho_fac.T)
 
 
 def _surf_forward_batch_fast(h, vp, vs, rho, qsinv, periods, nlay,
@@ -671,29 +697,17 @@ def _surf_forward_batch_fast(h, vp, vs, rho, qsinv, periods, nlay,
          has the same dc-sampling failure class as the reference);
       2. refine: batched Illinois over all (period, mode, model) lanes
          with the truncation frozen at each bracket's upper end;
-      3. group velocity: implicit diff through the XLA secular function
-         (the differentiable reference path), vmapped over all lanes.
+      3. group velocity: implicit diff from the in-kernel forward-mode
+         tangents (``secular_lanes_grad``), one launch for all lanes.
     """
-    from pysurfinv_tpu.ops.pallas_secular import secular_lanes
+    from pysurfinv_tpu.ops.pallas_secular import (refine_lanes,
+                                                  secular_lanes,
+                                                  secular_lanes_frozen,
+                                                  secular_lanes_grad)
 
     B, L = h.shape
     dtype = h.dtype
-    idx = jnp.arange(L)[None, :]
-    nl = nlay[:, None]
-    thin = (idx < nl - 1) & (h <= H_MIN)
-    h_eff = jnp.where(thin | (idx >= nl - 1), 0.0, h)
-
-    kind = 1 if wave in ("love", "lov", "L") else 2
-    if cfg.flat:
-        fac = jax.vmap(flatten_factors, in_axes=(0, 0, None))(
-            h_eff, nlay, kind)
-    else:
-        from pysurfinv_tpu.ops.flatten import FlatFactors
-        ones = jnp.ones_like(h_eff)
-        fac = FlatFactors(h_flat=h_eff, vel_fac=ones, rho_fac=ones)
-
-    model_T = (vp.T, vs.T, rho.T, qsinv.T,
-               fac.h_flat.T, fac.vel_fac.T, fac.rho_fac.T)
+    h_eff, model_T = lane_model(h, vp, vs, rho, qsinv, nlay, wave, cfg.flat)
 
     def Fv(c, t, mmf):
         return secular_lanes(c, t, mmf, *model_T, nlay, wave=wave,
@@ -737,8 +751,6 @@ def _surf_forward_batch_fast(h, vp, vs, rho, qsinv, periods, nlay,
         pinned, so the dynamic truncation walk of ``secular_lanes`` is
         dead weight here — the frozen kernel skips it.
         """
-        from pysurfinv_tpu.ops.pallas_secular import secular_lanes_frozen
-
         def Ff(cc):
             return secular_lanes_frozen(
                 cc, t_kb, mm_kb, *model_T, nlay, wave=wave,
@@ -968,9 +980,6 @@ def _surf_forward_batch_fast(h, vp, vs, rho, qsinv, periods, nlay,
         # path's free polish; a midpoint bounce there would throw a
         # converged lane back to the middle of whatever bracket
         # remains).
-        from pysurfinv_tpu.ops.pallas_secular import (
-            secular_lanes_frozen, secular_lanes_grad)
-
         def Fg(cc):
             return secular_lanes_grad(
                 cc, t_l, mm_l, *model_T, nlay, wave=wave,
@@ -1008,10 +1017,7 @@ def _surf_forward_batch_fast(h, vp, vs, rho, qsinv, periods, nlay,
             u_l = jnp.zeros_like(root_l)
     elif cfg.nnewton >= 1:
         # fused refine: all Illinois iterations + Newton tail + group
-        # tangents in ONE kernel launch (the model strip loads into
-        # VMEM once for the whole refinement)
-        from pysurfinv_tpu.ops.pallas_secular import refine_lanes
-
+        # tangents in ONE kernel launch
         root_l, u_l = refine_lanes(
             lo_l, hi_l, t_l, mm_l, *model_T, nlay, wave=wave,
             t_base=cfg.t_base, atten=cfg.atten, n_ill=cfg.nbisect,
@@ -1020,10 +1026,7 @@ def _surf_forward_batch_fast(h, vp, vs, rho, qsinv, periods, nlay,
     else:
         if cfg.fuse_illinois:
             # all Illinois iterations in ONE plain-body kernel launch
-            # (same algorithm as illinois_lanes; the model strip loads
-            # into VMEM once for the whole refinement)
-            from pysurfinv_tpu.ops.pallas_secular import refine_lanes
-
+            # (same algorithm as illinois_lanes)
             root_l, _ = refine_lanes(
                 lo_l, hi_l, t_l, mm_l, *model_T, nlay, wave=wave,
                 t_base=cfg.t_base, atten=cfg.atten, n_ill=cfg.nbisect,
@@ -1038,8 +1041,6 @@ def _surf_forward_batch_fast(h, vp, vs, rho, qsinv, periods, nlay,
         # through the kernel fail at shallow roots where the
         # renormalised f32 secular value sits at the noise floor.
         if cfg.compute_group:
-            from pysurfinv_tpu.ops.pallas_secular import secular_lanes_grad
-
             f0_l, fc_l, ft_l = secular_lanes_grad(
                 root_l, t_l, mm_l, *model_T, nlay, wave=wave,
                 t_base=cfg.t_base, atten=cfg.atten, interpret=interpret)
@@ -1101,14 +1102,14 @@ def surf_forward_joint(h, vp, vs, rho, qsinv, periods, nlay,
     (the ``c_warm`` contract), and the window sits well inside the
     warm-sweep band validated root-adjacent by the MCMC warm-start
     evidence (zero spurious brackets in 147k transitions at wider
-    windows, docs/PERF_NOTES.md).  Roots match the independent solves
-    to Illinois tolerance; gated by ``tests/test_joint_forward.py``
-    and the on-chip oracle ladder (``scripts/ab_joint.py``).
+    windows).  Roots match the independent solves to Illinois
+    tolerance; gated by ``tests/test_joint_forward.py`` and, on the
+    card, by ``chip_smoke.py``.
 
     Returns ``(cR, uR, okR, cL, uL, okL)``, each ``(B, P, nmodes)``.
     """
     cfg_l = cfg_love if cfg_love is not None else cfg
-    interp = _pallas_backend(cfg)
+    interp = _lane_backend(cfg)
     if interp is None or cfg.nmodes != 1:
         cR, uR, okR = surf_forward_batch(h, vp, vs, rho, qsinv, periods,
                                          nlay, wave="rayleigh", cfg=cfg)

@@ -3,7 +3,7 @@
 The reference writes displacement/stress eigenfunctions per (mode,
 period) from its RK4 integration (``senskernel-1.0/src/SURF_PERTURB/
 calcul_deep.f:254-349`` and the ``surfa.f`` REIGEN/LEIGEN machinery).
-This module reconstructs the same profiles TPU-natively, without
+This module reconstructs the same profiles in batched JAX, without
 copying that pipeline:
 
   * each homogeneous layer's displacement-stress propagator is the

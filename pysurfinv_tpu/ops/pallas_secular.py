@@ -1,24 +1,24 @@
-"""Pallas TPU kernels for the secular-function hot loop.
+"""Pallas GPU kernels (Triton route) for the secular-function hot loop.
 
 The root search (``ops/dispersion.py``) spends ~99% of its FLOPs
-evaluating the Rayleigh/Love secular functions: a 63-step layer
-recursion on a 5-vector (Dunkin, ``/root/reference/fast_surf_src/
-surfa.f:185-372``) or 2-vector (Haskell, ``surfa.f:135-183``) per
-(model, period, trial-c) lane.  The XLA path (``ops/secular.py``)
-expresses that as ``vmap(lax.scan)`` — correct and differentiable, but
-each scan step round-trips the tiny state through HBM-visible fusions
-and re-dispatches per layer.
+evaluating the Rayleigh/Love secular functions: a layer recursion on a
+5-vector (Dunkin, ``fast_surf_src/surfa.f:185-372``) or
+2-vector (Haskell, ``surfa.f:135-183``) per (model, period, trial-c)
+lane.  The XLA path (``ops/secular.py``) expresses that as
+``vmap(lax.scan)`` — correct and differentiable, but each scan step
+round-trips the lane state through device memory.
 
 These kernels fuse the *entire* evaluation — per-period attenuation
 rescale, dynamic 4-wavelength halfspace truncation, the layer
 recursion with per-layer renormalisation, and the halfspace closure —
-into one VMEM-resident pass per lane block:
+into one pass per lane tile whose state never leaves registers:
 
   * lanes are laid out (K, B): K "probes" (c-grid points or periods)
-    on the sublane axis, B models on the 128-wide lane axis;
-  * model arrays are stored transposed, (L, B), so one kernel block
-    loads an (L, 128) strip into VMEM once and streams all K probes
-    against it from registers;
+    by B models; one program owns a (kb, bb) tile of them;
+  * model arrays are stored transposed, (L, B), so each per-layer row
+    load is one coalesced read across the tile's bb models, shared by
+    its kb probes; the programs of one model strip run back to back
+    (probe axis first in the launch grid), so the strip stays in L2;
   * the truncation (``surfa.f:92-106``) runs inline: a running
     evanescent-thickness sum closes each lane at its own ``mmax`` and
     records the halfspace row on the fly, instead of a separate
@@ -27,60 +27,44 @@ into one VMEM-resident pass per lane block:
     NEVILL convention of refining inside a bracket with the truncation
     frozen at the bracket's upper end (``calcul.f:156-172``).
 
+Rows are indexed one at a time inside the layer loop (``ref[l]``), so
+only the (bb,) row loads need power-of-two sizes; the layer count L is
+free.  Each wrapper pads K and B up to whole tiles and slices the
+padding off again.
+
 The XLA implementation remains the single source of truth for AD
 (group velocity, sensitivity kernels) and for float64 golden tests;
-``tests/test_pallas_secular.py`` pins the two paths against each other.
+``tests/test_pallas_secular.py`` pins the two paths against each other
+in interpret mode.
 """
 
 from __future__ import annotations
 
 from functools import partial
+from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 TWO_PI = 6.283185307179586
 ACCUR = 1e-8  # regime-switch tolerance, surfa.f:191-192
 
-LANE = 128  # model-axis block width (TPU lane count)
 
-# Layer-loop unroll inside the kernels.  Measured on v5e (L = 96,
-# B = 4096, inside one jit): FULL unroll of the plain secular body is
-# ~2x faster per evaluation than unroll=1 — the carry stays in
-# registers.  The cost is VMEM *stack*: Mosaic allocates every unrolled
-# iteration's temporaries without cross-iteration reuse, and while the
-# plain body fits, the linearize-based gradient body wants ~37 MB
-# against the 16 MB scoped limit — so gradient kernels run their layer
-# loop in manual BLOCKS of GRAD_UNROLL iterations (a block's
-# temporaries fit VMEM; values are identical — blocking only changes
-# instruction scheduling).  Block-size ladder on chip (anchor-ratio
-# A/B, scripts/ab_grad_unroll.py, drift cancelled): 1 -> x0.927 of the
-# grad-free anchor, 8 -> x0.939, 16 -> x0.939; 8 ships (+1.3% on the
-# full phase+group bench path).  0 = full; override per measurement.
-import os as _os
-UNROLL_LAYERS = int(_os.environ.get("PYSURFINV_PALLAS_UNROLL", "0"))
-GRAD_UNROLL = int(_os.environ.get("PYSURFINV_PALLAS_GRAD_UNROLL", "8"))
+class Tile(NamedTuple):
+    """Launch shape of the kernels."""
+
+    kb: int      # probes per program
+    bb: int      # models per program (a power of two)
+    warps: int   # num_warps of the Triton launch
 
 
-def _layer_unroll(L, interpret):
-    if interpret or UNROLL_LAYERS == 1:
-        return 1
-    return L - 1 if UNROLL_LAYERS == 0 else UNROLL_LAYERS
-
-
-def _grad_unroll(L, interpret):
-    if interpret or GRAD_UNROLL == 1:
-        return 1
-    return L - 1 if GRAD_UNROLL == 0 else GRAD_UNROLL
-
-
-# Mosaic's fori_loop lowering supports only unroll=1 or full unroll; on
-# TPU we fully unroll the layer recursion (registers stay live across
-# layers).  Interpret mode must NOT unroll: the interpreter inlines the
-# kernel jaxpr once per grid program, and 65 programs x a fully
-# unrolled 63-layer body explodes XLA CPU compile time and memory.
+# Chosen by timing the kernels on an H100 at the bench shape (PERF.md):
+# one lane per thread.  Other (kb, bb, warps) with 4 warps timed the
+# same; 8 warps slowed the tangent kernel; unrolling the layer loop by
+# 2 or 4 was slower and compiled 4-20x longer, so the loop stays rolled.
+TILE = Tile(kb=1, bb=128, warps=4)
 
 
 def _pq(r, wd):
@@ -124,7 +108,7 @@ def _ray_prop(cv, tv, b1, b2, b3, b4, b5, a_l, b_l, rho_l, d_l):
 
     Pure elementwise function of the trial (c, T) and the incoming
     5-vector, with the layer material held constant — the form both the
-    plain kernel and the ``jax.linearize``-based gradient kernel share.
+    plain kernels and the ``jax.linearize``-based gradient kernel share.
     """
     csq = cv * cv
     wvno = TWO_PI / (cv * tv)
@@ -188,6 +172,15 @@ def _ray_prop(cv, tv, b1, b2, b3, b4, b5, a_l, b_l, rho_l, d_l):
     return bb1, bb2, bb3, bb4, bb5
 
 
+def _renorm(vec):
+    """Divide a state vector by its max-abs (sign-preserving)."""
+    scale = jnp.abs(vec[0])
+    for x in vec[1:]:
+        scale = jnp.maximum(scale, jnp.abs(x))
+    inv = 1.0 / jnp.where(scale > 0.0, scale, 1.0)
+    return tuple(x * inv for x in vec), inv
+
+
 def _ray_closure(cv, b1, b2, b3, b4, b5, a_h, b_h, rho_h):
     """Halfspace closure -> secular value (surfa.f:340-354)."""
     csq = cv * cv
@@ -239,294 +232,10 @@ def _love_init(cv, b_h, rho_h):
     return jnp.ones_like(cv), rho_h * b_hs * b_hs * rb_h
 
 
-def _rayleigh_kernel(fact, t_base, atten, L, unroll,
-                     vp_ref, vs_ref, rho_ref, qsi_ref,
-                     hf_ref, vf_ref, rf_ref, nlay_ref,
-                     c_ref, t_ref, tm_ref, mmf_ref,
-                     f_out, bhs_out, mm_out):
-    """One (Kb, 128) lane block of Rayleigh secular evaluations.
-
-    ``t`` drives the wavenumber/truncation; ``tm`` drives the material
-    (physical-dispersion) rescale.  They are equal in normal use and
-    differ only for the fixed-material finite differences behind the
-    group velocity (see dispersion._group_velocity's convention).
-    """
-    c = c_ref[:]                      # (Kb, 128)
-    t = t_ref[:]
-    tm = tm_ref[:]
-    mmf = mmf_ref[:]                  # int32, 0 = dynamic truncation
-    nlay = nlay_ref[:]                # (1, 128) int32
-    frozen = mmf > 0
-
-    csq = c * c
-    wvno = TWO_PI / (c * t)
-    dmax = fact * c * t
-    lnt = jnp.log(t_base / tm) / jnp.pi if atten else jnp.zeros_like(t)
-
-    zero = jnp.zeros_like(c)
-    one = jnp.ones_like(c)
-
-    def layer_model(l):
-        """Attenuated + flattened (a, b, rho, d) row l vs all lanes."""
-        vp_l = vp_ref[l][None, :]
-        vs_l = vs_ref[l][None, :]
-        rho_l = rho_ref[l][None, :]
-        qsi_l = qsi_ref[l][None, :]
-        hf_l = hf_ref[l][None, :]
-        vf_l = vf_ref[l][None, :]
-        rf_l = rf_ref[l][None, :]
-        if atten:
-            qsq = qsi_l * lnt
-            vp_s = jnp.where(jnp.abs(vp_l) > 0, vp_l, 1.0)
-            qpq = qsq * 1.33333333 * (vs_l / vp_s) ** 2
-            a_l = vp_l * (1.0 + qpq) * vf_l
-            b_l = vs_l * (1.0 + qsq) * vf_l
-        else:
-            a_l = vp_l * vf_l
-            b_l = vs_l * vf_l
-        return a_l, b_l, rho_l * rf_l, hf_l
-
-    def body(l, carry):
-        # masks ride the carry as f32 0/1 — Mosaic cannot round-trip
-        # i1 vectors through an unrolled loop carry (arith.trunci bug)
-        (b1, b2, b3, b4, b5, closed_f, csum, pending_f,
-         a_h, b_h, rho_h, mm) = carry
-        a_l, b_l, rho_l, d_l = layer_model(l)
-
-        # ---- inline truncation walk (surfa.f:92-106) ----------------
-        cond = (c < b_l) & (l < nlay)
-        csum = csum + jnp.where(cond, d_l, 0.0)
-        exceed = cond & (csum > dmax)
-        close_dyn = (pending_f > 0.5) | exceed | (l == nlay - 1)
-        # logical blend, not jnp.where: a bool-valued select lowers
-        # through an i8 vector Mosaic cannot truncate back to i1
-        close_sel = (frozen & (l == mmf - 1)) | (~frozen & close_dyn)
-        close_now = (closed_f < 0.5) & (l >= 1) & close_sel
-        pending_f = jnp.maximum(
-            pending_f, jnp.where(exceed & (l == 0), 1.0, 0.0))
-        a_h = jnp.where(close_now, a_l, a_h)
-        b_h = jnp.where(close_now, b_l, b_h)
-        rho_h = jnp.where(close_now, rho_l, rho_h)
-        mm = jnp.where(close_now, l + 1, mm)
-        closed_f = jnp.maximum(closed_f, jnp.where(close_now, 1.0, 0.0))
-        apply = closed_f < 0.5
-
-        # ---- layer propagation (surfa.f:259-335) --------------------
-        ra, rb, g, g1, liquid = _wavenumbers(c, a_l, b_l)
-        wd = wvno * d_l
-        rsinp, sinpr, cosp = _pq(ra, wd)
-        rsinq, sinqr, cosq = _pq(rb, wd)
-
-        rhoc = rho_l * csq
-        rr = rsinp * rsinq
-        ss = sinpr * sinqr
-        cc = cosp * cosq
-        rs1 = rsinp * cosq
-        rs2 = sinqr * cosp
-        rs3 = sinpr * cosq
-        rs4 = rsinq * cosp
-        gm = 2.0 * g - 1.0
-        gs = g * g
-        g1s = g1 * g1
-        ccm = 1.0 - cc
-        gg1 = g * g1
-        rhocs = rhoc * rhoc
-        suu = gs * rr + g1s * ss
-        inv_rhoc = 1.0 / rhoc
-
-        e11 = (2.0 * gs - gm) * cc - suu - 2.0 * gg1
-        e12 = -(rs1 + rs2) * inv_rhoc
-        e13 = -2.0 * (gm * ccm + g1 * ss + g * rr) * inv_rhoc
-        e14 = (rs3 + rs4) * inv_rhoc
-        e15 = (2.0 * ccm + rr + ss) * inv_rhoc * inv_rhoc
-        e21 = rhoc * (g1s * rs3 + gs * rs4)
-        e22 = cc
-        e23 = 2.0 * (g * rs4 + g1 * rs3)
-        e24 = sinpr * rsinq
-        e31 = rhoc * (gg1 * gm * ccm + g1s * g1 * ss + gs * g * rr)
-        e32 = g1 * rs2 + g * rs1
-        e33 = 1.0 + 2.0 * (2.0 * gg1 * ccm + suu)
-        e41 = -rhoc * (g1s * rs2 + gs * rs1)
-        e42 = rsinp * sinqr
-        e51 = rhocs * (2.0 * gs * g1s * ccm + gs * gs * rr
-                       + g1s * g1s * ss)
-
-        # liquid-surface-layer override (surfa.f:216-251)
-        e11 = jnp.where(liquid, cosp, e11)
-        e21 = jnp.where(liquid, rhoc * sinpr, e21)
-        liq0 = jnp.where(liquid, zero, one)
-        e12, e13, e14, e15 = (x * liq0 for x in (e12, e13, e14, e15))
-        e22, e23, e24 = (x * liq0 for x in (e22, e23, e24))
-        e31, e32, e33 = (x * liq0 for x in (e31, e32, e33))
-        e41, e42, e51 = (x * liq0 for x in (e41, e42, e51))
-
-        bb1 = e11 * b1 + e12 * b2 + e13 * b3 + e14 * b4 + e15 * b5
-        bb2 = e21 * b1 + e22 * b2 + e23 * b3 + e24 * b4 - e14 * b5
-        bb3 = (e31 * b1 + e32 * b2 + e33 * b3 - 0.5 * e23 * b4
-               + 0.5 * e13 * b5)
-        bb4 = e41 * b1 + e42 * b2 - 2.0 * e32 * b3 + e22 * b4 - e12 * b5
-        bb5 = e51 * b1 - e41 * b2 + 2.0 * e31 * b3 - e21 * b4 + e11 * b5
-
-        bb1 = jnp.where(apply, bb1, b1)
-        bb2 = jnp.where(apply, bb2, b2)
-        bb3 = jnp.where(apply, bb3, b3)
-        bb4 = jnp.where(apply, bb4, b4)
-        bb5 = jnp.where(apply, bb5, b5)
-        scale = jnp.maximum(
-            jnp.maximum(jnp.maximum(jnp.abs(bb1), jnp.abs(bb2)),
-                        jnp.maximum(jnp.abs(bb3), jnp.abs(bb4))),
-            jnp.abs(bb5))
-        inv = 1.0 / jnp.where(scale > 0.0, scale, 1.0)
-        return (bb1 * inv, bb2 * inv, bb3 * inv, bb4 * inv, bb5 * inv,
-                closed_f, csum, pending_f, a_h, b_h, rho_h, mm)
-
-    carry = (one, zero, zero, zero, zero, zero, zero, zero,
-             one, one, one,
-             jnp.broadcast_to(nlay, c.shape).astype(jnp.int32))
-    carry = jax.lax.fori_loop(0, L - 1, body, carry, unroll=unroll)
-    (b1, b2, b3, b4, b5, closed_f, _, _, a_h, b_h, rho_h, mm) = carry
-    closed = closed_f > 0.5
-
-    # lanes never closed in 0..L-2 close with the padded halfspace row
-    a_last, b_last, rho_last, _ = layer_model(L - 1)
-    a_h = jnp.where(closed, a_h, a_last)
-    b_h = jnp.where(closed, b_h, b_last)
-    rho_h = jnp.where(closed, rho_h, rho_last)
-    mm = jnp.where(closed, mm, jnp.broadcast_to(nlay, c.shape))
-
-    # ---- halfspace closure (surfa.f:340-354) -------------------------
-    ra_h, rb_h, g_h, g1_h, _ = _wavenumbers(c, a_h, b_h)
-    ra_h = jnp.where(jnp.abs(ra_h) > ACCUR, ra_h, -ACCUR)
-    den = rho_h * a_h * a_h
-    gra = g_h * ra_h
-    rba = rb_h - 1.0 / ra_h
-    A11 = (-2.0 * rb_h * (b_h * b_h) / (a_h * a_h)
-           + csq * (g1_h * g1_h) / ((a_h * a_h) * gra))
-    A12 = -1.0 / (g_h * den)
-    A13 = -rb_h / den + g1_h / (den * gra)
-    A14 = rb_h / (den * gra)
-    A15 = rba / ((rho_h * a_h) ** 2 * csq * g_h)
-    f_out[:] = -(A11 * b1 + A12 * b2 + 2.0 * A13 * b3 + A14 * b4
-                 + A15 * b5)
-    bhs_out[:] = b_h
-    mm_out[:] = mm.astype(jnp.int32)
-
-
-def _love_kernel(fact, t_base, atten, L, unroll,
-                 vp_ref, vs_ref, rho_ref, qsi_ref,
-                 hf_ref, vf_ref, rf_ref, nlay_ref,
-                 c_ref, t_ref, tm_ref, mmf_ref,
-                 f_out, bhs_out, mm_out):
-    """One (Kb, 128) lane block of Love secular evaluations.
-
-    Pass 1 walks down to find each lane's closure layer and halfspace
-    row; pass 2 propagates (ut, tt) from the halfspace back to the
-    surface (DLTAR1, surfa.f:135-183).
-    """
-    c = c_ref[:]
-    t = t_ref[:]
-    tm = tm_ref[:]
-    mmf = mmf_ref[:]
-    nlay = nlay_ref[:]
-    frozen = mmf > 0
-
-    wvno = TWO_PI / (c * t)
-    dmax = fact * c * t
-    lnt = jnp.log(t_base / tm) / jnp.pi if atten else jnp.zeros_like(t)
-    zero = jnp.zeros_like(c)
-    one = jnp.ones_like(c)
-
-    def layer_model(l):
-        vs_l = vs_ref[l][None, :]
-        rho_l = rho_ref[l][None, :]
-        qsi_l = qsi_ref[l][None, :]
-        hf_l = hf_ref[l][None, :]
-        vf_l = vf_ref[l][None, :]
-        rf_l = rf_ref[l][None, :]
-        b_l = (vs_l * (1.0 + qsi_l * lnt) if atten else vs_l) * vf_l
-        return b_l, rho_l * rf_l, hf_l
-
-    # ---- pass 1: truncation walk --------------------------------------
-    def trunc_body(l, carry):
-        closed_f, csum, pending_f, b_h, rho_h, mm = carry
-        b_l, rho_l, d_l = layer_model(l)
-        cond = (c < b_l) & (l < nlay)
-        csum = csum + jnp.where(cond, d_l, 0.0)
-        exceed = cond & (csum > dmax)
-        close_dyn = (pending_f > 0.5) | exceed | (l == nlay - 1)
-        # logical blend, not jnp.where: a bool-valued select lowers
-        # through an i8 vector Mosaic cannot truncate back to i1
-        close_sel = (frozen & (l == mmf - 1)) | (~frozen & close_dyn)
-        close_now = (closed_f < 0.5) & (l >= 1) & close_sel
-        pending_f = jnp.maximum(
-            pending_f, jnp.where(exceed & (l == 0), 1.0, 0.0))
-        b_h = jnp.where(close_now, b_l, b_h)
-        rho_h = jnp.where(close_now, rho_l, rho_h)
-        mm = jnp.where(close_now, l + 1, mm)
-        closed_f = jnp.maximum(closed_f, jnp.where(close_now, 1.0, 0.0))
-        return closed_f, csum, pending_f, b_h, rho_h, mm
-
-    carry0 = (zero, zero, zero, one, one,
-              jnp.broadcast_to(nlay, c.shape).astype(jnp.int32))
-    closed_f, _, _, b_h, rho_h, mm = jax.lax.fori_loop(
-        0, L - 1, trunc_body, carry0, unroll=unroll)
-    closed = closed_f > 0.5
-    b_last, rho_last, _ = layer_model(L - 1)
-    b_h = jnp.where(closed, b_h, b_last)
-    rho_h = jnp.where(closed, rho_h, rho_last)
-    mm = jnp.where(closed, mm, jnp.broadcast_to(nlay, c.shape))
-
-    # ---- halfspace initial state (surfa.f:143-148) ---------------------
-    b_hs = jnp.where(jnp.abs(b_h) > ACCUR, b_h, 1.0)
-    rb_h = jnp.sqrt(jnp.abs((c / b_hs) ** 2 - 1.0))
-    ut = one
-    tt = rho_h * b_hs * b_hs * rb_h
-    scale0 = jnp.maximum(jnp.abs(ut), jnp.abs(tt))
-    inv0 = 1.0 / jnp.where(scale0 > 0, scale0, 1.0)
-    ut, tt = ut * inv0, tt * inv0
-
-    # ---- pass 2: reverse propagation up to the surface ------------------
-    def prop_body(i, carry):
-        ut, tt = carry
-        l = L - 2 - i
-        b_l, rho_l, d_l = layer_model(l)
-        water = jnp.abs(b_l) <= ACCUR
-        apply = (l <= mm - 2) & ~water
-        b_safe = jnp.where(water, 1.0, b_l)
-        rb = jnp.sqrt(jnp.abs((c / b_safe) ** 2 - 1.0))
-        hmu = rho_l * b_safe * b_safe
-        q = -wvno * d_l * rb
-        osc = (c > b_safe) & (rb >= 1e-20)
-        ev = (c < b_safe) & (rb >= 1e-20)
-        q_osc = jnp.where(osc, q, 0.0)
-        q_ev = jnp.where(ev, q, 0.0)
-        rb_safe = jnp.where(rb >= 1e-20, rb, 1.0)
-        eq = jnp.exp(q_ev)  # q_ev <= 0
-        shq, chq = 0.5 * (eq - 1.0 / eq), 0.5 * (eq + 1.0 / eq)
-        sn = jnp.sin(q_osc)
-        y = jnp.where(osc, sn / rb_safe,
-                      jnp.where(ev, shq / rb_safe, -wvno * d_l))
-        z = jnp.where(osc, rb * sn, jnp.where(ev, -rb * shq, 0.0))
-        cosq = jnp.where(osc, jnp.cos(q_osc), jnp.where(ev, chq, 1.0))
-        eut = cosq * ut - y * tt / hmu
-        ett = hmu * z * ut + cosq * tt
-        eut = jnp.where(apply, eut, ut)
-        ett = jnp.where(apply, ett, tt)
-        scale = jnp.maximum(jnp.abs(eut), jnp.abs(ett))
-        inv = 1.0 / jnp.where(scale > 0, scale, 1.0)
-        return eut * inv, ett * inv
-
-    ut, tt = jax.lax.fori_loop(0, L - 1, prop_body, (ut, tt),
-                               unroll=unroll)
-    f_out[:] = -tt
-    bhs_out[:] = b_h
-    mm_out[:] = mm.astype(jnp.int32)
-
-
 def _make_layer_model(vp_ref, vs_ref, rho_ref, qsi_ref, hf_ref, vf_ref,
                       rf_ref, lnt, atten):
-    """Attenuated + flattened (a, b, rho, d) row accessor (material fixed
-    at the period behind ``lnt`` — the fixed-material group convention)."""
+    """Attenuated + flattened (a, b, rho, d) row accessor, material at
+    the period behind ``lnt`` (the fixed-material group convention)."""
     def layer_model(l):
         vp_l = vp_ref[l][None, :]
         vs_l = vs_ref[l][None, :]
@@ -549,34 +258,94 @@ def _make_layer_model(vp_ref, vs_ref, rho_ref, qsi_ref, hf_ref, vf_ref,
     return layer_model
 
 
-def _block_fori(n, body, carry, unroll):
-    """``fori_loop(0, n, body, carry)`` with manual partial unrolling.
+def _dynamic_truncation(c, t, fact, mmf, nlay, layer_model, L):
+    """Inline truncation walk (surfa.f:92-106) for one lane tile.
 
-    Mosaic's fori_loop lowering supports only ``unroll=1`` or full
-    unroll; intermediate factors (the VMEM sweet spot for the gradient
-    tiles, whose full unroll wants ~37 MB of scoped stack) are done by
-    hand here: an outer unroll=1 loop over blocks of ``unroll`` inlined
-    ``body`` steps, plus a static Python remainder.  ``n`` is static.
+    Returns (a_h, b_h, rho_h, mm): each lane's closure-layer material
+    and 1-based layer count.  ``mmf > 0`` pins the closure layer
+    instead (NEVILL convention).
     """
-    if unroll == 1 or unroll >= n:
-        return jax.lax.fori_loop(0, n, body, carry,
-                                 unroll=(n if unroll >= n else 1))
-    k = unroll
-    nb = n // k
+    dmax = fact * c * t
+    frozen = mmf > 0
+    shape = c.shape
+    nlay_b = jnp.broadcast_to(nlay, shape)
 
-    def blk(b, c):
-        i0 = b * k
-        for j in range(k):
-            c = body(i0 + j, c)
-        return c
+    def body(l, carry):
+        closed, csum, pending, a_h, b_h, rho_h, mm = carry
+        a_l, b_l, rho_l, d_l = layer_model(l)
+        cond = (c < b_l) & (l < nlay)
+        csum = csum + jnp.where(cond, d_l, 0.0)
+        exceed = cond & (csum > dmax)
+        close_dyn = pending | exceed | (l == nlay - 1)
+        close_sel = jnp.where(frozen, l == mmf - 1, close_dyn)
+        close_now = ~closed & (l >= 1) & close_sel
+        pending = pending | (exceed & (l == 0))
+        a_h = jnp.where(close_now, a_l, a_h)
+        b_h = jnp.where(close_now, b_l, b_h)
+        rho_h = jnp.where(close_now, rho_l, rho_h)
+        mm = jnp.where(close_now, l + 1, mm)
+        return closed | close_now, csum, pending, a_h, b_h, rho_h, mm
 
-    carry = jax.lax.fori_loop(0, nb, blk, carry, unroll=1)
-    for i in range(nb * k, n):
-        carry = body(i, carry)
-    return carry
+    false = jnp.zeros(shape, jnp.bool_)
+    one = jnp.ones_like(c)
+    carry = (false, jnp.zeros_like(c), false, one, one, one, nlay_b)
+    closed, _, _, a_h, b_h, rho_h, mm = jax.lax.fori_loop(0, L - 1, body, carry)
+    # lanes never closed in 0..L-2 close with the last (halfspace) row
+    a_last, b_last, rho_last, _ = layer_model(L - 1)
+    return (jnp.where(closed, a_h, a_last), jnp.where(closed, b_h, b_last),
+            jnp.where(closed, rho_h, rho_last),
+            jnp.where(closed, mm, nlay_b))
 
 
-def _capture_halfspace(layer_model, mmf, shape, L, unroll):
+def _rayleigh_kernel(vp_ref, vs_ref, rho_ref, qsi_ref,
+                     hf_ref, vf_ref, rf_ref, nlay_ref,
+                     c_ref, t_ref, tm_ref, mmf_ref,
+                     f_out, bhs_out, mm_out, *, fact, t_base, atten, L):
+    """One (kb, bb) lane tile of Rayleigh secular evaluations.
+
+    ``t`` drives the wavenumber/truncation; ``tm`` drives the material
+    (physical-dispersion) rescale.  They are equal in normal use and
+    differ only for the fixed-material finite differences behind the
+    group velocity (see dispersion._group_velocity's convention).
+    Pass 1 walks down to find each lane's closure layer; pass 2 runs
+    the Dunkin recursion above it, the same code as the frozen kernel.
+    """
+    c = c_ref[...]
+    t = t_ref[...]
+    lnt = jnp.log(t_base / tm_ref[...]) / jnp.pi if atten else None
+    layer_model = _make_layer_model(vp_ref, vs_ref, rho_ref, qsi_ref,
+                                    hf_ref, vf_ref, rf_ref, lnt, atten)
+    a_h, b_h, rho_h, mm = _dynamic_truncation(
+        c, t, fact, mmf_ref[...], nlay_ref[...], layer_model, L)
+    f_out[...] = _ray_secular_tile(c, t, mm, layer_model, a_h, b_h, rho_h,
+                                   L)
+    bhs_out[...] = b_h
+    mm_out[...] = mm.astype(jnp.int32)
+
+
+def _love_kernel(vp_ref, vs_ref, rho_ref, qsi_ref,
+                 hf_ref, vf_ref, rf_ref, nlay_ref,
+                 c_ref, t_ref, tm_ref, mmf_ref,
+                 f_out, bhs_out, mm_out, *, fact, t_base, atten, L):
+    """One (kb, bb) lane tile of Love secular evaluations.
+
+    Pass 1 walks down to find each lane's closure layer and halfspace
+    row; pass 2 propagates (ut, tt) from the halfspace back to the
+    surface (DLTAR1, surfa.f:135-183).
+    """
+    c = c_ref[...]
+    t = t_ref[...]
+    lnt = jnp.log(t_base / tm_ref[...]) / jnp.pi if atten else None
+    layer_model = _make_layer_model(vp_ref, vs_ref, rho_ref, qsi_ref,
+                                    hf_ref, vf_ref, rf_ref, lnt, atten)
+    _, b_h, rho_h, mm = _dynamic_truncation(
+        c, t, fact, mmf_ref[...], nlay_ref[...], layer_model, L)
+    f_out[...] = _love_secular_tile(c, t, mm, layer_model, b_h, rho_h, L)
+    bhs_out[...] = b_h
+    mm_out[...] = mm.astype(jnp.int32)
+
+
+def _capture_halfspace(layer_model, mmf, shape, L):
     """(a, b, rho) of each lane's frozen closure layer ``mmf - 1``."""
     a_last, b_last, rho_last, _ = layer_model(L - 1)
 
@@ -589,32 +358,26 @@ def _capture_halfspace(layer_model, mmf, shape, L, unroll):
                 jnp.where(capture, rho_l, rho_h))
 
     bc = lambda x: jnp.broadcast_to(x, shape)  # noqa: E731
-    return _block_fori(L - 1, cap_body,
-                       (bc(a_last), bc(b_last), bc(rho_last)), unroll)
+    return jax.lax.fori_loop(0, L - 1, cap_body,
+                             (bc(a_last), bc(b_last), bc(rho_last)))
 
 
-def _ray_secular_tile(cv, t, mmf, layer_model, a_h, b_h, rho_h, L, unroll):
+def _ray_secular_tile(cv, t, mmf, layer_model, a_h, b_h, rho_h, L):
     """Secular value at frozen mm for one lane tile (plain, no tangents)."""
     one = jnp.ones_like(cv)
     zero = jnp.zeros_like(cv)
 
     def body(l, carry):
-        a_l, b_l, rho_l, d_l = layer_model(l)
+        nb = _ray_prop(cv, t, *carry, *layer_model(l))
         apply = l < (mmf - 1)
-        nb = _ray_prop(cv, t, *carry, a_l, b_l, rho_l, d_l)
         nb = [jnp.where(apply, p, o) for p, o in zip(nb, carry)]
-        scale = nb[0]
-        for x in nb[1:]:
-            scale = jnp.maximum(jnp.abs(scale), jnp.abs(x))
-        inv = 1.0 / jnp.where(jnp.abs(scale) > 0.0, jnp.abs(scale), 1.0)
-        return tuple(x * inv for x in nb)
+        return _renorm(nb)[0]
 
-    b = _block_fori(L - 1, body, (one, zero, zero, zero, zero), unroll)
+    b = jax.lax.fori_loop(0, L - 1, body, (one, zero, zero, zero, zero))
     return _ray_closure(cv, *b, a_h, b_h, rho_h)
 
 
-def _ray_secular_grad_tile(cv, t, mmf, layer_model, a_h, b_h, rho_h, L,
-                           unroll):
+def _ray_secular_grad_tile(cv, t, mmf, layer_model, a_h, b_h, rho_h, L):
     """(F, dF/dc, dF/dT) at frozen mm — per-layer ``jax.linearize``
     with the tangents riding the loop carry (renorm factor an AD
     constant, like ``ops.secular``'s stop_gradient)."""
@@ -622,9 +385,7 @@ def _ray_secular_grad_tile(cv, t, mmf, layer_model, a_h, b_h, rho_h, L,
     zero = jnp.zeros_like(cv)
 
     def body(l, carry):
-        b = carry[0:5]
-        dc = carry[5:10]
-        dt = carry[10:15]
+        b, dc, dt = carry[0:5], carry[5:10], carry[10:15]
         a_l, b_l, rho_l, d_l = layer_model(l)
         apply = l < (mmf - 1)
 
@@ -637,15 +398,11 @@ def _ray_secular_grad_tile(cv, t, mmf, layer_model, a_h, b_h, rho_h, L,
         nb = [jnp.where(apply, p, o) for p, o in zip(primal, b)]
         ndc = [jnp.where(apply, p, o) for p, o in zip(dcs, dc)]
         ndt = [jnp.where(apply, p, o) for p, o in zip(dts, dt)]
-        scale = nb[0]
-        for x in nb[1:]:
-            scale = jnp.maximum(jnp.abs(scale), jnp.abs(x))
-        scale = jnp.abs(scale)
-        inv = 1.0 / jnp.where(scale > 0.0, scale, 1.0)
-        return tuple(x * inv for x in nb + ndc + ndt)
+        nb, inv = _renorm(nb)
+        return nb + tuple(x * inv for x in ndc + ndt)
 
     carry = (one, zero, zero, zero, zero) + (zero,) * 10
-    carry = _block_fori(L - 1, body, carry, unroll)
+    carry = jax.lax.fori_loop(0, L - 1, body, carry)
 
     def clos(x, *bv):
         return _ray_closure(x, *bv, a_h, b_h, rho_h)
@@ -654,42 +411,34 @@ def _ray_secular_grad_tile(cv, t, mmf, layer_model, a_h, b_h, rho_h, L,
     return F, lin(one, *carry[5:10]), lin(zero, *carry[10:15])
 
 
-def _love_secular_tile(cv, t, mmf, layer_model, b_h, rho_h, L, unroll):
-    """Love secular value at frozen mm for one lane tile."""
-    ut, tt = _love_init(cv, b_h, rho_h)
-    scale0 = jnp.maximum(jnp.abs(ut), jnp.abs(tt))
-    inv0 = 1.0 / jnp.where(scale0 > 0, scale0, 1.0)
-    ut, tt = ut * inv0, tt * inv0
+def _love_secular_tile(cv, t, mmf, layer_model, b_h, rho_h, L):
+    """Love secular value at closure layer count ``mmf`` for one tile:
+    (ut, tt) propagated from the halfspace up to the surface."""
+    (ut, tt), _ = _renorm(_love_init(cv, b_h, rho_h))
 
     def body(i, carry):
-        ut, tt = carry
         l = L - 2 - i
         _, b_l, rho_l, d_l = layer_model(l)
         water = jnp.abs(b_l) <= ACCUR
         apply = (l <= mmf - 2) & ~water
-        pu, ps = _love_prop(cv, t, ut, tt, b_l, rho_l, d_l)
-        nut = jnp.where(apply, pu, ut)
-        ntt = jnp.where(apply, ps, tt)
-        scale = jnp.maximum(jnp.abs(nut), jnp.abs(ntt))
-        inv = 1.0 / jnp.where(scale > 0, scale, 1.0)
-        return nut * inv, ntt * inv
+        pu, ps = _love_prop(cv, t, *carry, b_l, rho_l, d_l)
+        new = (jnp.where(apply, pu, carry[0]),
+               jnp.where(apply, ps, carry[1]))
+        return _renorm(new)[0]
 
-    ut, tt = _block_fori(L - 1, body, (ut, tt), unroll)
+    ut, tt = jax.lax.fori_loop(0, L - 1, body, (ut, tt))
     return -tt
 
 
-def _love_secular_grad_tile(cv, t, mmf, layer_model, b_h, rho_h, L,
-                            unroll):
+def _love_secular_grad_tile(cv, t, mmf, layer_model, b_h, rho_h, L):
     """(F, dF/dc, dF/dT) Love analogue of :func:`_ray_secular_grad_tile`."""
     one = jnp.ones_like(cv)
     zero = jnp.zeros_like(cv)
 
     (ut, tt), lin0 = jax.linearize(lambda x: _love_init(x, b_h, rho_h), cv)
     utc, ttc = lin0(one)
-    utt, ttt = zero, zero
-    scale0 = jnp.maximum(jnp.abs(ut), jnp.abs(tt))
-    inv0 = 1.0 / jnp.where(scale0 > 0, scale0, 1.0)
-    ut, tt, utc, ttc = ut * inv0, tt * inv0, utc * inv0, ttc * inv0
+    (ut, tt), inv0 = _renorm((ut, tt))
+    utc, ttc = utc * inv0, ttc * inv0
 
     def body(i, carry):
         ut, tt, utc, ttc, utt, ttt = carry
@@ -704,212 +453,83 @@ def _love_secular_grad_tile(cv, t, mmf, layer_model, b_h, rho_h, L,
         (pu, ps), lin = jax.linearize(prop, cv, t, ut, tt)
         duc, dsc = lin(one, zero, utc, ttc)
         dut, dst = lin(zero, one, utt, ttt)
-        nut = jnp.where(apply, pu, ut)
-        ntt = jnp.where(apply, ps, tt)
-        nutc = jnp.where(apply, duc, utc)
-        nttc = jnp.where(apply, dsc, ttc)
-        nutt = jnp.where(apply, dut, utt)
-        nttt = jnp.where(apply, dst, ttt)
-        scale = jnp.maximum(jnp.abs(nut), jnp.abs(ntt))
-        inv = 1.0 / jnp.where(scale > 0, scale, 1.0)
-        return (nut * inv, ntt * inv, nutc * inv, nttc * inv,
-                nutt * inv, nttt * inv)
+        new = [jnp.where(apply, p, o) for p, o in
+               zip((pu, ps, duc, dsc, dut, dst), carry)]
+        (nut, ntt), inv = _renorm(new[:2])
+        return (nut, ntt) + tuple(x * inv for x in new[2:])
 
-    ut, tt, utc, ttc, utt, ttt = _block_fori(
-        L - 1, body, (ut, tt, utc, ttc, utt, ttt), unroll)
+    ut, tt, utc, ttc, utt, ttt = jax.lax.fori_loop(0, 
+        L - 1, body, (ut, tt, utc, ttc, zero, zero))
     return -tt, -ttc, -ttt
 
 
-def _rayleigh_grad_kernel(t_base, atten, L, unroll,
-                          vp_ref, vs_ref, rho_ref, qsi_ref,
-                          hf_ref, vf_ref, rf_ref, nlay_ref,
-                          c_ref, t_ref, tm_ref, mmf_ref,
-                          f_out, fc_out, ft_out):
-    """(F, dF/dc, dF/dT) at a *frozen* truncation, one lane block.
+def _grad_kernel(vp_ref, vs_ref, rho_ref, qsi_ref,
+                 hf_ref, vf_ref, rf_ref, nlay_ref,
+                 c_ref, t_ref, mmf_ref,
+                 f_out, fc_out, ft_out, *, wave, t_base, atten, L):
+    """(F, dF/dc, dF/dT) at a *frozen* truncation, one lane tile.
 
     Forward-mode tangents via ``jax.linearize`` of the per-layer update:
     the primal recursion runs once, and the two tangents (w.r.t. the
     trial c and the wavenumber period T) reuse its residuals — no extra
-    transcendentals.  The material (attenuation) period ``tm`` is held
-    constant, matching the reference's fixed-material group-velocity
-    convention (see dispersion._group_velocity), and the per-layer
+    transcendentals.  The material (attenuation) is held at ``t``,
+    matching the reference's fixed-material group-velocity convention
+    (see dispersion._group_velocity), and the per-layer
     renormalisation factor is treated as an AD constant exactly like the
     ``stop_gradient`` in ``ops.secular``.  Powers the group velocity
     u = c / (1 - (T/c) F_T/F_c) without leaving the fused kernel.
     """
-    c = c_ref[:]
-    t = t_ref[:]
-    tm = tm_ref[:]
-    mmf = mmf_ref[:]                  # int32, always >= 2 here
-    lnt = jnp.log(t_base / tm) / jnp.pi if atten else None
+    c = c_ref[...]
+    t = t_ref[...]
+    mmf = mmf_ref[...]                # int32, always >= 2 here
+    lnt = jnp.log(t_base / t) / jnp.pi if atten else None
     layer_model = _make_layer_model(vp_ref, vs_ref, rho_ref, qsi_ref,
                                     hf_ref, vf_ref, rf_ref, lnt, atten)
-    a_h, b_h, rho_h = _capture_halfspace(layer_model, mmf, c.shape, L,
-                                         unroll)
-    F, Fc, Ft = _ray_secular_grad_tile(c, t, mmf, layer_model, a_h, b_h,
-                                       rho_h, L, unroll)
-    f_out[:] = F
-    fc_out[:] = Fc
-    ft_out[:] = Ft
+    a_h, b_h, rho_h = _capture_halfspace(layer_model, mmf, c.shape, L)
+    if _is_rayleigh(wave):
+        F, Fc, Ft = _ray_secular_grad_tile(c, t, mmf, layer_model, a_h,
+                                           b_h, rho_h, L)
+    else:
+        F, Fc, Ft = _love_secular_grad_tile(c, t, mmf, layer_model, b_h,
+                                            rho_h, L)
+    f_out[...] = F
+    fc_out[...] = Fc
+    ft_out[...] = Ft
 
 
-def _love_grad_kernel(t_base, atten, L, unroll,
-                      vp_ref, vs_ref, rho_ref, qsi_ref,
-                      hf_ref, vf_ref, rf_ref, nlay_ref,
-                      c_ref, t_ref, tm_ref, mmf_ref,
-                      f_out, fc_out, ft_out):
-    """Love analogue of :func:`_rayleigh_grad_kernel` (frozen mm)."""
-    c = c_ref[:]
-    t = t_ref[:]
-    tm = tm_ref[:]
-    mmf = mmf_ref[:]
-    lnt = jnp.log(t_base / tm) / jnp.pi if atten else None
+def _frozen_kernel(vp_ref, vs_ref, rho_ref, qsi_ref,
+                   hf_ref, vf_ref, rf_ref, nlay_ref,
+                   c_ref, t_ref, mmf_ref, f_out, *, wave, t_base, atten,
+                   L):
+    """Plain secular evaluation at a *frozen* truncation (no tangents).
+
+    The refinement phase always evaluates inside a bracket whose
+    closure layer is pinned (NEVILL convention), so the dynamic
+    truncation walk of the main kernel — the running evanescent sum,
+    close/pending bookkeeping — is dead weight there.  This kernel
+    captures the halfspace row once and runs the bare recursion.
+    """
+    c = c_ref[...]
+    t = t_ref[...]
+    mmf = mmf_ref[...]
+    lnt = jnp.log(t_base / t) / jnp.pi if atten else None
     layer_model = _make_layer_model(vp_ref, vs_ref, rho_ref, qsi_ref,
                                     hf_ref, vf_ref, rf_ref, lnt, atten)
-    _, b_h, rho_h = _capture_halfspace(layer_model, mmf, c.shape, L,
-                                       unroll)
-    F, Fc, Ft = _love_secular_grad_tile(c, t, mmf, layer_model, b_h,
-                                        rho_h, L, unroll)
-    f_out[:] = F
-    fc_out[:] = Fc
-    ft_out[:] = Ft
+    a_h, b_h, rho_h = _capture_halfspace(layer_model, mmf, c.shape, L)
+    if _is_rayleigh(wave):
+        f_out[...] = _ray_secular_tile(c, t, mmf, layer_model, a_h, b_h,
+                                       rho_h, L)
+    else:
+        f_out[...] = _love_secular_tile(c, t, mmf, layer_model, b_h,
+                                        rho_h, L)
 
 
-@partial(jax.jit, static_argnames=("wave", "t_base", "atten", "interpret"))
-def secular_lanes_grad(c, t, mm_frozen, vp, vs, rho, qsi, h_flat, vel_fac,
-                       rho_fac, nlay, wave: str = "rayleigh",
-                       t_base: float = 1.0, atten: bool = True,
-                       interpret: bool = False):
-    """(F, dF/dc, dF/dT) on a (K, B) lane grid at frozen truncation.
-
-    Same lane layout and model transposition as :func:`secular_lanes`;
-    ``mm_frozen`` must be >= 2 everywhere (the NEVILL frozen-mm
-    convention — this entry point has no dynamic-truncation mode).
-    The tangents follow the fixed-material convention of
-    ``dispersion._group_velocity``:  dF/dT is the partial through the
-    wavenumbers only, with the attenuated material held at ``t``.
-    """
-    K, B = c.shape
-    L = vp.shape[0]
-    Bp = -(-B // LANE) * LANE
-    Kb = 8
-    Kp = -(-K // Kb) * Kb
-
-    c = _pad_to(_pad_to(c, Kp, 0, 1.0), Bp, 1, 1.0)
-    t = _pad_to(_pad_to(t, Kp, 0, 1.0), Bp, 1, 1.0)
-    mmf = _pad_to(_pad_to(mm_frozen, Kp, 0, 2), Bp, 1, 2)
-    model = [_pad_to(x, Bp, 1, 1.0)
-             for x in (vp, vs, rho, qsi, h_flat, vel_fac, rho_fac)]
-    nlay2 = _pad_to(nlay.astype(jnp.int32)[None, :], Bp, 1, 2)
-
-    kern = _rayleigh_grad_kernel if wave in ("rayleigh", "ray", "R") \
-        else _love_grad_kernel
-    body = partial(kern, t_base, atten, L, _grad_unroll(L, interpret))
-
-    grid = (Kp // Kb, Bp // LANE)
-    mspec = pl.BlockSpec((L, LANE), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM)
-    lspec = pl.BlockSpec((Kb, LANE), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM)
-    nspec = pl.BlockSpec((1, LANE), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM)
-
-    f, fc, ft = pl.pallas_call(
-        body,
-        grid=grid,
-        in_specs=[mspec] * 7 + [nspec, lspec, lspec, lspec, lspec],
-        out_specs=(lspec, lspec, lspec),
-        out_shape=(
-            jax.ShapeDtypeStruct((Kp, Bp), c.dtype),
-            jax.ShapeDtypeStruct((Kp, Bp), c.dtype),
-            jax.ShapeDtypeStruct((Kp, Bp), c.dtype),
-        ),
-        interpret=interpret,
-    )(*model, nlay2, c, t, t, mmf)
-    return f[:K, :B], fc[:K, :B], ft[:K, :B]
-
-
-def _pad_to(x, n, axis, fill):
-    pad = n - x.shape[axis]
-    if pad == 0:
-        return x
-    widths = [(0, 0)] * x.ndim
-    widths[axis] = (0, pad)
-    return jnp.pad(x, widths, constant_values=fill)
-
-
-@partial(jax.jit, static_argnames=("wave", "fact", "t_base", "atten",
-                                   "interpret"))
-def secular_lanes(c, t, mm_frozen, vp, vs, rho, qsi, h_flat, vel_fac,
-                  rho_fac, nlay, wave: str = "rayleigh", fact: float = 4.0,
-                  t_base: float = 1.0, atten: bool = True,
-                  interpret: bool = False, t_mat=None):
-    """Evaluate the secular function on a (K, B) lane grid.
-
-    Args:
-      c, t:       (K, B) trial phase velocities and periods.
-      mm_frozen:  (K, B) int32; 0 = dynamic truncation, >0 = pinned
-                  1-based closure layer count (NEVILL convention).
-      vp..rho_fac: (L, B) transposed padded model arrays; ``h_flat``,
-                  ``vel_fac``, ``rho_fac`` from ``ops.flatten`` (pass
-                  ones/h for an unflattened run).
-      nlay:       (B,) int32 real-layer counts.
-
-    Returns:
-      F:    (K, B) secular values (sign/roots as ``ops.secular``),
-      b_hs: (K, B) shear velocity of each lane's closure halfspace,
-      mm:   (K, B) int32 closure layer counts actually used.
-    """
-    K, B = c.shape
-    L = vp.shape[0]
-    Bp = -(-B // LANE) * LANE
-    Kb = 8  # f32 native sublane tile; K is padded up to a multiple
-    Kp = -(-K // Kb) * Kb
-
-    t_mat = t if t_mat is None else t_mat
-    c = _pad_to(_pad_to(c, Kp, 0, 1.0), Bp, 1, 1.0)
-    t = _pad_to(_pad_to(t, Kp, 0, 1.0), Bp, 1, 1.0)
-    tm = _pad_to(_pad_to(t_mat, Kp, 0, 1.0), Bp, 1, 1.0)
-    mmf = _pad_to(_pad_to(mm_frozen, Kp, 0, 2), Bp, 1, 2)
-    model = [_pad_to(x, Bp, 1, 1.0)
-             for x in (vp, vs, rho, qsi, h_flat, vel_fac, rho_fac)]
-    nlay2 = _pad_to(nlay.astype(jnp.int32)[None, :], Bp, 1, 2)
-
-    kern = _rayleigh_kernel if wave in ("rayleigh", "ray", "R") \
-        else _love_kernel
-    body = partial(kern, fact, t_base, atten, L,
-                   _layer_unroll(L, interpret))
-
-    grid = (Kp // Kb, Bp // LANE)
-    mspec = pl.BlockSpec((L, LANE), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM)
-    lspec = pl.BlockSpec((Kb, LANE), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM)
-    nspec = pl.BlockSpec((1, LANE), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM)
-
-    f, bhs, mm = pl.pallas_call(
-        body,
-        grid=grid,
-        in_specs=[mspec] * 7 + [nspec, lspec, lspec, lspec, lspec],
-        out_specs=(lspec, lspec, lspec),
-        out_shape=(
-            jax.ShapeDtypeStruct((Kp, Bp), c.dtype),
-            jax.ShapeDtypeStruct((Kp, Bp), c.dtype),
-            jax.ShapeDtypeStruct((Kp, Bp), jnp.int32),
-        ),
-        interpret=interpret,
-    )(*model, nlay2, c, t, tm, mmf)
-    return f[:K, :B], bhs[:K, :B], mm[:K, :B]
-
-
-def _refine_kernel(wave, t_base, atten, L, unroll, n_ill, n_newton,
-                   compute_group,
-                   vp_ref, vs_ref, rho_ref, qsi_ref,
+def _refine_kernel(vp_ref, vs_ref, rho_ref, qsi_ref,
                    hf_ref, vf_ref, rf_ref, nlay_ref,
                    lo_ref, hi_ref, t_ref, mmf_ref,
-                   root_out, u_out):
-    """Bracket -> root -> group velocity, one launch per lane block.
+                   root_out, u_out, *, wave, t_base, atten, L,
+                   n_ill, n_newton, compute_group):
+    """Bracket -> root -> group velocity, one launch per lane tile.
 
     Replaces the ``nbisect`` separate Illinois kernel launches of the
     batched solver (plus the tangent launch behind group velocity) with
@@ -918,36 +538,32 @@ def _refine_kernel(wave, t_base, atten, L, unroll, n_ill, n_newton,
       1. ``n_ill + 2`` Illinois (regula falsi) iterations — the first
          two evaluate the bracket endpoints — shrink [lo, hi];
       2. ``n_newton`` bracket-clamped Newton iterations using the
-         in-kernel forward-mode tangent (quadratic tail convergence;
-         each costs ~2.5 plain evaluations but replaces ~4);
+         in-kernel forward-mode tangent (quadratic tail convergence);
       3. the last Newton iteration's (F_c, F_T) give the group velocity
          u = c / (1 - (T/c) F_T/F_c) for free — the implicit-diff
          replacement of the reference's eigenfunction energy integrals
          (surfa.f LEIGEN/REIGEN).
 
-    The model strip loads into VMEM once for the entire refinement; the
-    truncation is frozen per lane (``mmf``, NEVILL convention).
+    The truncation is frozen per lane (``mmf``, NEVILL convention).
     """
-    lo = lo_ref[:]
-    hi = hi_ref[:]
-    t = t_ref[:]
-    mmf = mmf_ref[:]
+    lo = lo_ref[...]
+    hi = hi_ref[...]
+    t = t_ref[...]
+    mmf = mmf_ref[...]
     lnt = jnp.log(t_base / t) / jnp.pi if atten else None
     layer_model = _make_layer_model(vp_ref, vs_ref, rho_ref, qsi_ref,
                                     hf_ref, vf_ref, rf_ref, lnt, atten)
-    a_h, b_h, rho_h = _capture_halfspace(layer_model, mmf, lo.shape, L,
-                                         unroll)
-    rayleigh = wave in ("rayleigh", "ray", "R")
-    if rayleigh:
+    a_h, b_h, rho_h = _capture_halfspace(layer_model, mmf, lo.shape, L)
+    if _is_rayleigh(wave):
         F_of = lambda x: _ray_secular_tile(  # noqa: E731
-            x, t, mmf, layer_model, a_h, b_h, rho_h, L, unroll)
+            x, t, mmf, layer_model, a_h, b_h, rho_h, L)
         Fg_of = lambda x: _ray_secular_grad_tile(  # noqa: E731
-            x, t, mmf, layer_model, a_h, b_h, rho_h, L, unroll)
+            x, t, mmf, layer_model, a_h, b_h, rho_h, L)
     else:
         F_of = lambda x: _love_secular_tile(  # noqa: E731
-            x, t, mmf, layer_model, b_h, rho_h, L, unroll)
+            x, t, mmf, layer_model, b_h, rho_h, L)
         Fg_of = lambda x: _love_secular_grad_tile(  # noqa: E731
-            x, t, mmf, layer_model, b_h, rho_h, L, unroll)
+            x, t, mmf, layer_model, b_h, rho_h, L)
 
     sgn = lambda x: jnp.where(x >= 0, 1.0, -1.0)  # noqa: E731
     zero = jnp.zeros_like(lo)
@@ -988,11 +604,9 @@ def _refine_kernel(wave, t_base, atten, L, unroll, n_ill, n_newton,
     x = jnp.clip((lo * fhi - hi * flo) / denom, lo, hi)
 
     if n_newton == 0:
-        # Illinois-only fuse: no gradient tile is traced at all, so the
-        # whole kernel is the VMEM-safe plain body (callers pass the
-        # full layer unroll in this mode)
-        root_out[:] = x
-        u_out[:] = zero
+        # Illinois-only fuse: no gradient tile is traced at all
+        root_out[...] = x
+        u_out[...] = zero
         return
     slo = sgn(flo)
 
@@ -1020,8 +634,127 @@ def _refine_kernel(wave, t_base, atten, L, unroll, n_ill, n_newton,
 
     x, lo, hi, u = jax.lax.fori_loop(0, n_newton, newt_step,
                                      (x, lo, hi, zero))
-    root_out[:] = x
-    u_out[:] = u
+    root_out[...] = x
+    u_out[...] = u
+
+
+def _is_rayleigh(wave):
+    return wave in ("rayleigh", "ray", "R")
+
+
+def _pad_to(x, n, axis, fill):
+    pad = n - x.shape[axis]
+    if pad == 0:
+        return x
+    widths = [(0, 0)] * x.ndim
+    widths[axis] = (0, pad)
+    return jnp.pad(x, widths, constant_values=fill)
+
+
+def _lane_call(kernel, interpret, model, nlay, lanes, fills, out_dtypes):
+    """Launch ``kernel`` over a (K, B) lane grid in ``TILE``s.
+
+    ``model``: the 7 transposed (L, B) model arrays; ``nlay``: (B,);
+    ``lanes``: (K, B) per-lane inputs, padded up to whole tiles with
+    ``fills`` (inert values: padded lanes compute finite garbage that
+    is sliced off).  Returns the (K, B) outputs.
+    """
+    K, B = lanes[0].shape
+    L = model[0].shape[0]
+    kb, bb = TILE.kb, TILE.bb
+    Kp, Bp = -(-K // kb) * kb, -(-B // bb) * bb
+    lanes = [_pad_to(_pad_to(x, Kp, 0, f), Bp, 1, f)
+             for x, f in zip(lanes, fills)]
+    model = [_pad_to(x, Bp, 1, 1.0) for x in model]
+    nlay2 = _pad_to(nlay.astype(jnp.int32)[None, :], Bp, 1, 2)
+    body = partial(kernel, L=L)
+
+    mspec = pl.BlockSpec((L, bb), lambda i, j: (0, j))
+    nspec = pl.BlockSpec((1, bb), lambda i, j: (0, j))
+    lspec = pl.BlockSpec((kb, bb), lambda i, j: (i, j))
+    outs = pl.pallas_call(
+        body,
+        grid=(Kp // kb, Bp // bb),
+        in_specs=[mspec] * 7 + [nspec] + [lspec] * len(lanes),
+        out_specs=tuple(lspec for _ in out_dtypes),
+        out_shape=tuple(jax.ShapeDtypeStruct((Kp, Bp), d)
+                        for d in out_dtypes),
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(num_warps=TILE.warps,
+                                                num_stages=1),
+        interpret=interpret,
+        name=kernel.func.__name__.strip("_"),
+    )(*model, nlay2, *lanes)
+    return tuple(o[:K, :B] for o in outs)
+
+
+@partial(jax.jit, static_argnames=("wave", "fact", "t_base", "atten",
+                                   "interpret"))
+def secular_lanes(c, t, mm_frozen, vp, vs, rho, qsi, h_flat, vel_fac,
+                  rho_fac, nlay, wave: str = "rayleigh", fact: float = 4.0,
+                  t_base: float = 1.0, atten: bool = True,
+                  interpret: bool = False, t_mat=None):
+    """Evaluate the secular function on a (K, B) lane grid.
+
+    Args:
+      c, t:       (K, B) trial phase velocities and periods.
+      mm_frozen:  (K, B) int32; 0 = dynamic truncation, >0 = pinned
+                  1-based closure layer count (NEVILL convention).
+      vp..rho_fac: (L, B) transposed padded model arrays; ``h_flat``,
+                  ``vel_fac``, ``rho_fac`` from ``ops.flatten`` (pass
+                  ones/h for an unflattened run).
+      nlay:       (B,) int32 real-layer counts.
+      t_mat:      optional (K, B) material period (default ``t``).
+
+    Returns:
+      F:    (K, B) secular values (sign/roots as ``ops.secular``),
+      b_hs: (K, B) shear velocity of each lane's closure halfspace,
+      mm:   (K, B) int32 closure layer counts actually used.
+    """
+    kern = _rayleigh_kernel if _is_rayleigh(wave) else _love_kernel
+    t_mat = t if t_mat is None else t_mat
+    return _lane_call(
+        partial(kern, fact=fact, t_base=t_base, atten=atten),
+        interpret, (vp, vs, rho, qsi, h_flat, vel_fac, rho_fac), nlay,
+        (c, t, t_mat, mm_frozen), (1.0, 1.0, 1.0, 2),
+        (c.dtype, c.dtype, jnp.int32))
+
+
+@partial(jax.jit, static_argnames=("wave", "t_base", "atten", "interpret"))
+def secular_lanes_frozen(c, t, mm_frozen, vp, vs, rho, qsi, h_flat,
+                         vel_fac, rho_fac, nlay, wave: str = "rayleigh",
+                         t_base: float = 1.0, atten: bool = True,
+                         interpret: bool = False):
+    """Secular values on a (K, B) lane grid at frozen truncation.
+
+    Same contract as :func:`secular_lanes` with ``mm_frozen >= 2``
+    everywhere, returning only F — the refinement-phase fast path.
+    """
+    f, = _lane_call(
+        partial(_frozen_kernel, wave=wave, t_base=t_base, atten=atten),
+        interpret, (vp, vs, rho, qsi, h_flat, vel_fac, rho_fac),
+        nlay, (c, t, mm_frozen), (1.0, 1.0, 2), (c.dtype,))
+    return f
+
+
+@partial(jax.jit, static_argnames=("wave", "t_base", "atten", "interpret"))
+def secular_lanes_grad(c, t, mm_frozen, vp, vs, rho, qsi, h_flat, vel_fac,
+                       rho_fac, nlay, wave: str = "rayleigh",
+                       t_base: float = 1.0, atten: bool = True,
+                       interpret: bool = False):
+    """(F, dF/dc, dF/dT) on a (K, B) lane grid at frozen truncation.
+
+    Same lane layout and model transposition as :func:`secular_lanes`;
+    ``mm_frozen`` must be >= 2 everywhere (the NEVILL frozen-mm
+    convention — this entry point has no dynamic-truncation mode).
+    The tangents follow the fixed-material convention of
+    ``dispersion._group_velocity``:  dF/dT is the partial through the
+    wavenumbers only, with the attenuated material held at ``t``.
+    """
+    return _lane_call(
+        partial(_grad_kernel, wave=wave, t_base=t_base, atten=atten),
+        interpret, (vp, vs, rho, qsi, h_flat, vel_fac, rho_fac),
+        nlay, (c, t, mm_frozen), (1.0, 1.0, 2), (c.dtype,) * 3)
 
 
 @partial(jax.jit, static_argnames=("wave", "t_base", "atten", "n_ill",
@@ -1040,117 +773,9 @@ def refine_lanes(lo, hi, t, mm_frozen, vp, vs, rho, qsi, h_flat, vel_fac,
     caller's ``ok``).  Returns ``(root, u)``; ``u`` is zeros when
     ``compute_group`` is False or ``n_newton`` == 0.
     """
-    K, B = lo.shape
-    L = vp.shape[0]
-    Bp = -(-B // LANE) * LANE
-    Kb = 8
-    Kp = -(-K // Kb) * Kb
-
-    lo = _pad_to(_pad_to(lo, Kp, 0, 1.0), Bp, 1, 1.0)
-    hi = _pad_to(_pad_to(hi, Kp, 0, 1.1), Bp, 1, 1.1)
-    t = _pad_to(_pad_to(t, Kp, 0, 1.0), Bp, 1, 1.0)
-    mmf = _pad_to(_pad_to(mm_frozen, Kp, 0, 2), Bp, 1, 2)
-    model = [_pad_to(x, Bp, 1, 1.0)
-             for x in (vp, vs, rho, qsi, h_flat, vel_fac, rho_fac)]
-    nlay2 = _pad_to(nlay.astype(jnp.int32)[None, :], Bp, 1, 2)
-
-    # n_newton == 0 traces no gradient tile (Illinois-only), so the
-    # plain body's full layer unroll fits the VMEM stack
-    unroll = (_layer_unroll(L, interpret) if n_newton == 0
-              else _grad_unroll(L, interpret))
-    body = partial(_refine_kernel, wave, t_base, atten, L,
-                   unroll, n_ill, n_newton, compute_group)
-
-    grid = (Kp // Kb, Bp // LANE)
-    mspec = pl.BlockSpec((L, LANE), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM)
-    lspec = pl.BlockSpec((Kb, LANE), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM)
-    nspec = pl.BlockSpec((1, LANE), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM)
-
-    root, u = pl.pallas_call(
-        body,
-        grid=grid,
-        in_specs=[mspec] * 7 + [nspec, lspec, lspec, lspec, lspec],
-        out_specs=(lspec, lspec),
-        out_shape=(
-            jax.ShapeDtypeStruct((Kp, Bp), lo.dtype),
-            jax.ShapeDtypeStruct((Kp, Bp), lo.dtype),
-        ),
-        interpret=interpret,
-    )(*model, nlay2, lo, hi, t, mmf)
-    return root[:K, :B], u[:K, :B]
-
-
-def _frozen_kernel(wave, t_base, atten, L, unroll,
-                   vp_ref, vs_ref, rho_ref, qsi_ref,
-                   hf_ref, vf_ref, rf_ref, nlay_ref,
-                   c_ref, t_ref, mmf_ref, f_out):
-    """Plain secular evaluation at a *frozen* truncation (no tangents).
-
-    The refinement phase always evaluates inside a bracket whose
-    closure layer is pinned (NEVILL convention), so the dynamic
-    truncation walk of the main kernel — the running evanescent sum,
-    close/pending bookkeeping — is dead weight there.  This kernel
-    captures the halfspace row once and runs the bare recursion.
-    """
-    c = c_ref[:]
-    t = t_ref[:]
-    mmf = mmf_ref[:]
-    lnt = jnp.log(t_base / t) / jnp.pi if atten else None
-    layer_model = _make_layer_model(vp_ref, vs_ref, rho_ref, qsi_ref,
-                                    hf_ref, vf_ref, rf_ref, lnt, atten)
-    a_h, b_h, rho_h = _capture_halfspace(layer_model, mmf, c.shape, L,
-                                         unroll)
-    if wave in ("rayleigh", "ray", "R"):
-        f_out[:] = _ray_secular_tile(c, t, mmf, layer_model, a_h, b_h,
-                                     rho_h, L, unroll)
-    else:
-        f_out[:] = _love_secular_tile(c, t, mmf, layer_model, b_h,
-                                      rho_h, L, unroll)
-
-
-@partial(jax.jit, static_argnames=("wave", "t_base", "atten", "interpret"))
-def secular_lanes_frozen(c, t, mm_frozen, vp, vs, rho, qsi, h_flat,
-                         vel_fac, rho_fac, nlay, wave: str = "rayleigh",
-                         t_base: float = 1.0, atten: bool = True,
-                         interpret: bool = False):
-    """Secular values on a (K, B) lane grid at frozen truncation.
-
-    Same contract as :func:`secular_lanes` with ``mm_frozen >= 2``
-    everywhere, returning only F — the refinement-phase fast path.
-    """
-    K, B = c.shape
-    L = vp.shape[0]
-    Bp = -(-B // LANE) * LANE
-    Kb = 8
-    Kp = -(-K // Kb) * Kb
-
-    c = _pad_to(_pad_to(c, Kp, 0, 1.0), Bp, 1, 1.0)
-    t = _pad_to(_pad_to(t, Kp, 0, 1.0), Bp, 1, 1.0)
-    mmf = _pad_to(_pad_to(mm_frozen, Kp, 0, 2), Bp, 1, 2)
-    model = [_pad_to(x, Bp, 1, 1.0)
-             for x in (vp, vs, rho, qsi, h_flat, vel_fac, rho_fac)]
-    nlay2 = _pad_to(nlay.astype(jnp.int32)[None, :], Bp, 1, 2)
-
-    body = partial(_frozen_kernel, wave, t_base, atten, L,
-                   _layer_unroll(L, interpret))
-
-    grid = (Kp // Kb, Bp // LANE)
-    mspec = pl.BlockSpec((L, LANE), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM)
-    lspec = pl.BlockSpec((Kb, LANE), lambda i, j: (i, j),
-                         memory_space=pltpu.VMEM)
-    nspec = pl.BlockSpec((1, LANE), lambda i, j: (0, j),
-                         memory_space=pltpu.VMEM)
-
-    f, = pl.pallas_call(
-        body,
-        grid=grid,
-        in_specs=[mspec] * 7 + [nspec, lspec, lspec, lspec],
-        out_specs=(lspec,),
-        out_shape=(jax.ShapeDtypeStruct((Kp, Bp), c.dtype),),
-        interpret=interpret,
-    )(*model, nlay2, c, t, mmf)
-    return f[:K, :B]
+    return _lane_call(
+        partial(_refine_kernel, wave=wave, t_base=t_base, atten=atten,
+                n_ill=n_ill, n_newton=n_newton,
+                compute_group=compute_group),
+        interpret, (vp, vs, rho, qsi, h_flat, vel_fac, rho_fac), nlay,
+        (lo, hi, t, mm_frozen), (1.0, 1.1, 1.0, 2), (lo.dtype,) * 2)

@@ -17,17 +17,16 @@ Behavioural spec from the reference Fortran:
   * Per-period physical-dispersion (attenuation) rescale of velocities
     (``calcul.f:121-130``) with t_base = 1 s.
 
-TPU re-design notes:
+Design notes:
   * All branches (liquid layer, evanescent/oscillatory/critical regimes,
     truncation) are ``where``-masks, not control flow; one trace serves
     every (model, period, c) lane.
   * Layers are padded to a static length L; zero-thickness layers are
     exact identity updates in both recursions, so padding is free.
   * The per-layer matrix entries are computed *inside* the scan body
-    from the raw (vp, vs, rho, d) rows.  Precomputing them materializes
-    an (L, 15, lanes) tensor to HBM — measured ~100x slower on TPU than
-    recomputing in registers each step (HBM-bandwidth-bound vs
-    VPU-bound).
+    from the raw (vp, vs, rho, d) rows.  Precomputing them would
+    materialize an (L, 15, lanes) tensor in device memory: the scan
+    would become memory-bound where recomputing is compute-bound.
   * The 5-vector / 2-vector state is renormalised by its max-abs every
     layer (the reference relies on float32 range plus truncation); the
     rescale is sign-preserving and wrapped in ``stop_gradient`` so both
@@ -45,10 +44,10 @@ import os
 import jax.numpy as jnp
 from jax import lax
 
-# Scan unrolling trades compile time for runtime: TPU loop iterations
-# carry fixed scheduling overhead that dominates this tiny-state scan
-# (16x unroll ~ +20% throughput), but unrolling multiplies HLO size,
-# which hurts CPU test compile times badly. Tests set this to 1.
+# Scan unrolling trades compile time for runtime: each loop iteration
+# carries fixed overhead that dominates this tiny-state scan, but
+# unrolling multiplies HLO size, which hurts CPU test compile times
+# badly. Tests set this to 1.
 SCAN_UNROLL = int(os.environ.get("PYSURFINV_SCAN_UNROLL", "8"))
 
 TWO_PI = 6.283185307179586

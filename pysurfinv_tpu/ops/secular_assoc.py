@@ -24,10 +24,9 @@ and materialises an (L, 5, 5) tensor per lane instead of keeping a
 5-vector in registers.  At large batch the VPU is already saturated by
 the lane axis, so the extra flops are pure loss; the tree wins only
 when the batch is too small to fill the machine and the sequential
-scan's L-step dependency chain dominates latency.  Measured numbers
-and the crossover live in docs/PERF_NOTES.md ("Associative-scan
-secular ladder"); ``tests/test_secular_assoc.py`` pins root parity
-against the sequential path.
+scan's L-step dependency chain dominates latency.  Its GPU timing
+is not measured yet (ROADMAP §3); ``tests/test_secular_assoc.py``
+pins root parity against the sequential path.
 
 The per-layer matrix entries and closure rows are imported from
 :mod:`pysurfinv_tpu.ops.secular` — one source of truth for the physics

@@ -1,13 +1,13 @@
-"""Mesh helpers: shard independent inversions across TPU chips.
+"""Mesh helpers: shard independent inversions across devices.
 
 The reference's multi-node story is "grid points are separate jobs"
 (``/root/reference/model3D.py:36-57``) and chains are separate processes
-(``point.py:104-107``).  TPU-native equivalent (SURVEY.md §2.2): both are
-batch axes of one SPMD program — chains vmap *within* a chip, grid
-points shard *across* chips on a 1-D ``points`` mesh over ICI.  No
-collectives are needed in the hot loop (the problem is embarrassingly
-parallel); reductions only appear in diagnostics (misfit maps), where
-XLA inserts them automatically from the sharding annotations.
+(``point.py:104-107``).  Here (SURVEY.md §2.2) both are batch axes of
+one SPMD program — chains vmap *within* a device, grid points shard
+*across* devices on a 1-D ``points`` mesh.  No collectives are needed in
+the hot loop (the problem is embarrassingly parallel); reductions only
+appear in diagnostics (misfit maps), where XLA inserts them
+automatically from the sharding annotations.
 """
 
 from __future__ import annotations
@@ -26,19 +26,14 @@ def points_mesh(n_devices=None, devices=None):
 
 
 def multislice_mesh(n_slices, per_slice=None, devices=None):
-    """2-D ("dcn", "points") mesh for multi-slice / multi-host scale-out.
+    """Plain 2-D ("dcn", "points") mesh: ``n_slices`` groups of devices.
 
-    Outer axis = slices (DCN-connected pods), inner axis = the devices
-    of each slice (ICI).  ``invert_grid`` shards its flat lane axis over
-    BOTH axes, and — because grid points and chains are independent —
-    the hot loop contains no collectives at all: slices never
-    communicate over DCN, so scale-out is linear by construction and
-    the tracks are bitwise identical to a flat single-slice mesh
+    ``invert_grid`` shards its flat lane axis over BOTH axes, and —
+    because grid points and chains are independent — the hot loop
+    contains no collectives at all, so the tracks are bitwise identical
+    to a flat 1-D mesh
     (tests/test_parallel_grid.py::test_multislice_mesh_identical).
-
-    Device order matters only for *placement*, not results: pass
-    ``devices`` grouped slice-major (jax's default ``jax.devices()``
-    order already groups by process/slice on multi-host TPU).
+    Device order matters only for placement, not results.
     """
     devices = np.asarray(devices if devices is not None
                          else jax.devices())
@@ -56,10 +51,3 @@ def shard_points(mesh, tree):
 
 def pad_to_multiple(n, m):
     return int(-(-n // m) * m)
-
-
-def sharded_map(fn, mesh, in_specs=P("points"), out_specs=P("points")):
-    """shard_map a per-point function over the points axis."""
-    from jax.experimental.shard_map import shard_map
-    return shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                     check_rep=False)

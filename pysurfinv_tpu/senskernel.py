@@ -1,4 +1,4 @@
-"""Depth sensitivity kernels — the senskernel-1.0 package, TPU-native.
+"""Depth sensitivity kernels — the senskernel-1.0 package, in JAX.
 
 Capability spec from ``/root/reference/senskernel.py`` and the Fortran
 pipeline it shells out to (``senskernel-1.0/KERNELS.csh``: 3x

@@ -1,6 +1,6 @@
 #!/usr/bin/env bash
 # CI runner: quick -> not-slow -> full tiers with per-tier timeouts,
-# asserting the pytest summary line each time (VERDICT r3 next #9).
+# asserting the pytest summary line each time.
 #
 # Usage:
 #   scripts/ci.sh                # all three tiers
@@ -25,7 +25,7 @@ FAILED=0
 run_tier() {
     local name="$1" timeout_s="$2"; shift 2
     local log
-    log="$(mktemp /tmp/ci_${name}_XXXX.log)"
+    log="$(mktemp -t ci_${name}_XXXX.log)"
     echo "=== tier: ${name} (timeout ${timeout_s}s) $*"
     local t0 rc
     t0=$(date +%s)
@@ -47,7 +47,7 @@ run_tier() {
 }
 
 # fullsplit: the full tier as SIX pytest processes with the persistent
-# compile cache ON.  Rationale (VERDICT r4 next #6): jaxlib 0.9.0's
+# compile cache ON.  Rationale: jaxlib 0.9.0's
 # XLA:CPU executable (de)serialization segfaults only under
 # accumulated-process-load (~86th test of a single-process run, see
 # tests/conftest.py) — module-group-sized processes stay far below the
@@ -68,7 +68,7 @@ run_tier() {
 # to be recorded; warm-cache repeats load the big solver programs
 # from disk instead of recompiling.
 run_fullsplit() {
-    local cache="/tmp/pysurfinv_ci_cache"
+    local cache="${TMPDIR:-/tmp}/pysurfinv_ci_cache"
     mkdir -p "${cache}"
     local groups=(
         "tests/test_api.py tests/test_quick_smoke.py tests/test_models.py tests/test_priors.py tests/test_decorations.py tests/test_geo.py"

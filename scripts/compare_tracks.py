@@ -7,7 +7,7 @@ the recorded chains are statistically indistinguishable: same
 acceptance rate, same misfit distribution, same best model.  This
 prints per-dir aggregates and the deltas.
 
-    python scripts/compare_tracks.py /tmp/ab_grid/base_1 /tmp/ab_grid/coarse8_1
+    python scripts/compare_tracks.py runs/base runs/variant
 
 mcTrack columns (inversion/point.py PostPoint._loadValues):
 [misfit, L, accept, theta...] — misfit col 0, likelihood col 1,

@@ -13,30 +13,30 @@ acceptance arithmetic all carry distinct HLO op names.
 
 import os
 import sys
+import tempfile
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-
-import numpy as np  # noqa: E402
 
 
 def main():
     n_points = int(os.environ.get("N_POINTS", 64))
     steps = int(os.environ.get("STEPS", 20))
-    logdir = os.environ.get("LOGDIR", "/tmp/pysurfinv_trace")
+    logdir = os.environ.get("LOGDIR", "traces")
 
-    from scripts.ab_grid import build_points
-    from pysurfinv_tpu.parallel.grid import invert_grid
+    from bench import cascadia_grid
     from pysurfinv_tpu import profiling
+    from pysurfinv_tpu.parallel.grid import invert_grid
 
-    pts, lls = build_points(n_points)
+    pts, lls = cascadia_grid(n_points)
     runN = 30 * steps          # 30 chains/pt at chainL=steps
+    out = tempfile.mkdtemp(prefix="profile_segment_")
     # warm up: compile + first segments outside the trace
-    invert_grid(pts, lls, outdir="/tmp/prof_warm", runN=runN,
+    invert_grid(pts, lls, outdir=f"{out}/warm", runN=runN,
                 chainL=steps, seed=1, segment=steps)
     t0 = time.time()
     with profiling.trace(logdir):
-        invert_grid(pts, lls, outdir="/tmp/prof_traced", runN=runN,
+        invert_grid(pts, lls, outdir=f"{out}/traced", runN=runN,
                     chainL=steps, seed=1, segment=steps)
     print(f"traced run: {time.time() - t0:.2f}s "
           f"({n_points * runN} samples) -> {logdir}")

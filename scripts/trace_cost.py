@@ -1,7 +1,7 @@
 """Host-tracing cost breakdown of the grid sampler's segment program.
 
-VERDICT r4 next #3: a fresh process on a PRIMED machine still pays
-~25 s of host tracing before the cached executable loads.  This probe
+A fresh process on a PRIMED machine still pays host tracing before
+the cached executable loads.  This probe
 times ``jax.jit(...).lower()`` (tracing + STABLEHLO lowering, no XLA
 compile) of the segment program and of its pieces, so the fix targets
 the real cost:

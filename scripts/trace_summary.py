@@ -7,10 +7,11 @@
 kernel name (merging fusion suffixes), so a grid-sampler segment's step
 cost splits into phases without opening XProf:
 
-    python scripts/trace_summary.py /tmp/pysurfinv_trace [-n 30]
+    python scripts/trace_summary.py traces [-n 30]
 
-Device events are those on TensorCore / device lanes (pid names carry
-"TPU"/"Device"); host python/runtime lanes are skipped.
+Device events are those on GPU lanes (process names such as
+"/device:GPU:0" and their CUDA streams); host python/runtime lanes are
+skipped.
 """
 
 import argparse
@@ -51,8 +52,8 @@ def main():
 
     def is_device(pid):
         name = pid_name.get(pid, "")
-        dev = any(w in name for w in ("TPU", "Device", "TensorCore",
-                                      "XLA Ops", "/device:"))
+        dev = any(w in name for w in ("/device:", "GPU", "Stream",
+                                      "XLA Ops"))
         return dev if not args.host else not dev
 
     total = collections.Counter()

@@ -61,6 +61,26 @@ def test_compiled_forward_matches_host(point, cm):
     assert np.abs(dev - host).max() < 2e-4  # same physics, same grids
 
 
+def test_traced_profile_full_precision(point, cm):
+    """The jit-traced profile build keeps its B-spline products at
+    HIGHEST precision (a GPU would otherwise run f32 products in TF32,
+    ~1e-3 relative — the size of the parity budget in Vs) and matches
+    the host object's profile: the same layer grid, and Vs within the
+    compiled model's known mantle-top interpolation offset (< 1%)."""
+    import re
+
+    import jax
+    fn = jax.jit(lambda th: cm.build_profile(th)[:5])
+    txt = fn.lower(cm.spec.theta0).as_text()
+    dots = re.findall(r"stablehlo\.dot_general.*", txt)
+    assert dots and all("HIGHEST, HIGHEST" in d for d in dots), dots
+    h, vp, vs, rho, qsinv = map(np.asarray, fn(cm.spec.theta0))
+    hh, vsh, *_ = point.initMod.seisPropLayers(refLayer=cm._use_ref)
+    keep = h > 0
+    np.testing.assert_allclose(h[keep], hh, rtol=1e-12)
+    np.testing.assert_allclose(vs[keep], vsh, rtol=1e-2)
+
+
 def test_compiled_profile_finite(cm):
     h, vp, vs, rho, qsinv, nlay = [np.asarray(x) if not isinstance(x, int)
                                    else x

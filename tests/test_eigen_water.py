@@ -1,6 +1,6 @@
 """Liquid-top (ocean) Rayleigh eigenfunctions + energy integrals.
 
-Closes VERDICT r3 missing #1: the reference's REIGEN handles a surface
+The reference's REIGEN handles a surface
 water column analytically — cosh/sinh acoustic field matched at the
 water/solid interface (``fast_surf_src/surfa.f:876-911``), closed trig
 energy-integral contributions (``surfa.f:1028-1050``), and an
@@ -226,7 +226,7 @@ def test_water_love_rows_zero():
 
 @pytest.mark.slow  # full Cascadia structure: large-L expm programs
 def test_cascadia_ocean_fixture_eigen_path():
-    """The flagship ocean model (VERDICT r3 next #1 'done' criterion):
+    """The flagship ocean model:
     eigenfunctions, eigenfunctions_regular and energy_integrals all
     work on the water-topped Cascadia point model."""
     from examples.invert_point import (localInfo, periods, setting,

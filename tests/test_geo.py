@@ -71,7 +71,7 @@ def test_exchange_roundtrip(tmp_path):
 
 def test_tension_smoothing_parity():
     """Quantified parity between the Gaussian smoother and the GMT
-    `surface`-style spline-in-tension filter (VERDICT r1 #5).
+    `surface`-style spline-in-tension filter.
 
     Both are tuned to the same half-power wavelength, so on a
     band-limited field they must agree closely; the measured max

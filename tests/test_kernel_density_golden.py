@@ -4,7 +4,7 @@ tests/test_kernel_golden.py compares our AD *layer-integral* kernels
 against layer integrals of the golden densities; the residual there is
 the AD-vs-eigenfunction formulation gap plus the golden's own sampling
 error, and its gates sit at 8-35% (documented per column).  This module
-closes VERDICT r3 weak #3 by comparing the SAME formulation instead:
+closes that gap by comparing the SAME formulation instead:
 :func:`~pysurfinv_tpu.ops.kernels.kernel_densities` rebuilds the
 reference's variational density product (``PHV_SENS_KERNEL.f:168-182``,
 ``GRV_SENS_KERNEL.f:100-108``) from OUR eigenfunctions, so the

@@ -178,7 +178,7 @@ def test_group_kernels_vs_test1(sens, golden, wt):
 
 
 def test_grv_rho_sign_bug_demonstrated(golden, eus_model):
-    """Pin the reference's GRV Rho sign bug with evidence (VERDICT r1 #4).
+    """Pin the reference's GRV Rho sign bug with evidence.
 
     The group-kernel identity, derived from u = c^2 / (c + T dc/dT), is
 

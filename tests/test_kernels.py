@@ -112,8 +112,7 @@ def test_apparent_q_golden_mode1(wave, wt, eus_model, golden):
 
     The reference ships both modes in ``TEST1/test.{R,L}.att``
     (``calcul_deep.f`` writes one Q column per mode); mode 0 is pinned
-    by ``test_apparent_q_golden`` above, this closes the mode-1 gap
-    (VERDICT r2 missing #2).
+    by ``test_apparent_q_golden`` above, this closes the mode-1 gap.
 
     Tiered tolerance (measured residual pattern): at T >= 30 s our AD Q
     matches the golden to ~5e-7 relative — far tighter than mode 0's

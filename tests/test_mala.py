@@ -162,7 +162,7 @@ def test_mala_posterior_parity_vs_host_oracle():
                     os.path.join(mala_dir, f"mala_s{s}.npz"))):
                 # init_all: MALA's capped drift cannot descend from a
                 # uniform draw within CHAIN_L steps (the measured
-                # mixing limitation, docs/PERF_NOTES.md round 4);
+                # mixing limitation);
                 # initMod starts isolate posterior CORRECTNESS — the
                 # statistics below are threshold-filtered true-chain
                 # rows, insensitive to the start point once converged

@@ -34,7 +34,7 @@ NMODES = 4
 # overtones below the truncation halfspace's cutoff here
 PERIODS = [10.0, 15.0, 20.0]
 
-# High-mode envelope (VERDICT r3 next #8): SURF_PERTURB supports up to
+# High-mode envelope: SURF_PERTURB supports up to
 # 10 modes (init_deep.f:16); validate 6 at periods where the dense f64
 # scan finds >= 7 trapped roots (measured: R @ 8/10/12 s -> 10/9/7,
 # L -> 11/8/7, adjacent-root gaps all >> dc)
@@ -75,8 +75,8 @@ def _brute_roots(m, wave, t, n_roots, dc=1e-3):
     # The dynamic 4-wavelength truncation makes F DISCONTINUOUS in c:
     # where the effective halfspace index changes between adjacent
     # samples, the renormalised secular can flip sign with NO root in
-    # between (the same artifact class the warm-window work isolated,
-    # docs/PERF_NOTES.md round 5).  A real root persists when the
+    # between (the same artifact class the warm-window work isolated).
+    # A real root persists when the
     # truncation is FROZEN across the cell; an mm-transition artifact
     # does not — validate every candidate flip that way (the solver's
     # own refinement freezes mm per the NEVILL convention, so this is
@@ -141,7 +141,7 @@ def test_four_modes_vs_brute_force(eus_model, wave):
 @pytest.mark.parametrize("wave", ["rayleigh", "love"])
 def test_six_modes_vs_brute_force(eus_model, wave):
     """Modes 0-5 phase parity vs the dense-scan oracle — the
-    SURF_PERTURB high-mode envelope check (VERDICT r3 next #8)."""
+    SURF_PERTURB high-mode envelope check."""
     _modes_vs_brute(eus_model, wave, NMODES_HI, PERIODS_HI, min_roots=6)
 
 
@@ -153,8 +153,7 @@ def test_six_modes_vs_brute_force(eus_model, wave):
 @pytest.mark.parametrize("wave", ["rayleigh", "love"])
 def test_ten_modes_vs_brute_force(eus_model, wave):
     """Modes 0-9 phase parity vs the dense-scan oracle — the FULL
-    kmax envelope of SURF_PERTURB (``init_deep.f:16``), VERDICT r4
-    next #5.
+    kmax envelope of SURF_PERTURB (``init_deep.f:16``).
 
     T = 7 s: the dense f64 scan finds 12 roots for both waves, ALL
     below the halfspace shear-velocity cutoff, with adjacent-root
@@ -209,8 +208,7 @@ def ocean_model():
 @pytest.mark.parametrize("wave", ["rayleigh", "love"])
 def test_ocean_overtones_vs_brute_force(ocean_model, wave):
     """Overtone parity on a WATER-TOP model (liquid-layer secular
-    branch + water-skip Love convention active), VERDICT r4 next #5's
-    'an ocean model' clause.  The oceanic waveguide traps fewer modes
+    branch + water-skip Love convention active).  The oceanic waveguide traps fewer modes
     than the continental crust at these periods; parity is asserted
     for every mode the oracle finds (>= 3)."""
     _modes_vs_brute(ocean_model, wave, NMODES_HI, [8.0, 10.0],
@@ -265,8 +263,7 @@ def _dense_root_near(F, mdl, nlay, cfg, t_eval, c_near, span=2e-3,
 @pytest.mark.parametrize("wave", ["rayleigh", "love"])
 def test_overtone_group_velocity_and_q_vs_fd_oracle(eus_model, wave):
     """Group velocity and apparent Q for modes 0-5 vs independent
-    finite-difference oracles at T = 10 s (VERDICT r4 next #5: 'group
-    velocity and apparent Q for modes >= 2 have no parity evidence').
+    finite-difference oracles at T = 10 s.
 
     u oracle: frozen-model dense-scan roots at T(1 +- 5e-4) ->
     u = d omega / d k.  Q oracle: skd = dc/d eps for the physical-

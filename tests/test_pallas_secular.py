@@ -3,8 +3,8 @@
 The Pallas kernel (``ops/pallas_secular.py``) must reproduce the XLA
 scan (``ops/secular.py``) bit-for-bit in structure: same attenuation
 rescale, same truncation decisions, same recursion, same closure.  Here
-it runs in interpreter mode (no TPU needed) in float32 — the dtype it
-serves on TPU — against the XLA path evaluated in float32 on CPU.
+it runs in interpreter mode (no GPU needed) in float32 — the dtype it
+serves on the GPU — against the XLA path evaluated in float32 on CPU.
 """
 
 import jax
@@ -252,3 +252,89 @@ def test_fused_illinois_matches_separate_launches(batch, fhandoff):
     else:
         np.testing.assert_array_equal(np.asarray(c0), np.asarray(c1))
         np.testing.assert_array_equal(np.asarray(u0), np.asarray(u1))
+
+
+@pytest.mark.parametrize("wave", ["rayleigh", "love"])
+def test_tile_padding_bit_identical(batch, wave, monkeypatch):
+    """Padding K and B up to whole power-of-two tiles changes nothing.
+
+    The same 3 models and 5 probes run unpadded-looking (alone, padded
+    by the wrapper to one tile) and embedded at the head of a batch of
+    130 models under a (kb=2, bb=64) tile, which pads both axes; every
+    output of the shared lanes is bitwise identical."""
+    from pysurfinv_tpu.ops import pallas_secular as ps
+
+    periods = [10.0, 25.0, 40.0, 60.0, 100.0]
+    cs = np.linspace(3.2, 4.4, 15, dtype=np.float32).reshape(5, 3)
+    model_T, _, c, t, nl = _lanes_inputs(batch, periods, cs, wave)
+    mmf = jnp.full(c.shape, 30, jnp.int32)
+    zero = jnp.zeros(c.shape, jnp.int32)
+
+    def run(c, t, zero, mmf, model_T, nl):
+        out = ps.secular_lanes(c, t, zero, *model_T, nl, wave=wave,
+                               interpret=True)
+        out += (ps.secular_lanes_frozen(c, t, mmf, *model_T, nl,
+                                        wave=wave, interpret=True),)
+        return out + ps.secular_lanes_grad(c, t, mmf, *model_T, nl,
+                                           wave=wave, interpret=True)
+
+    small = run(c, t, zero, mmf, model_T, nl)
+    reps = -(-130 // 3)
+    wide = lambda x: jnp.tile(x, (1, reps))[:, :130]  # noqa: E731
+    monkeypatch.setattr(ps, "TILE", ps.Tile(kb=2, bb=64, warps=4))
+    jax.clear_caches()
+    big = run(wide(c), wide(t), wide(zero), wide(mmf),
+              tuple(wide(x) for x in model_T),
+              jnp.tile(nl, reps)[:130])
+    jax.clear_caches()
+    for s, b in zip(small, big):
+        np.testing.assert_array_equal(np.asarray(s), np.asarray(b)[:, :3])
+
+
+@pytest.mark.parametrize("kernel", ["lanes", "frozen", "grad", "refine"])
+@pytest.mark.parametrize("wave", ["rayleigh", "love"])
+def test_kernels_lower_to_triton(kernel, wave):
+    """Every kernel lowers for CUDA to one Triton custom call, here on
+    the CPU (cross-lowering): no primitive the Triton route lacks, no
+    non-power-of-two load — the model block keeps the eus model's
+    L = 72 rows, read one row at a time."""
+    import re
+
+    from pysurfinv_tpu.ops import pallas_secular as ps
+
+    L, B, K = 72, 200, 5
+    f32 = jnp.float32
+    m = [jax.ShapeDtypeStruct((L, B), f32)] * 7
+    nl = jax.ShapeDtypeStruct((B,), jnp.int32)
+    lk = jax.ShapeDtypeStruct((K, B), f32)
+    li = jax.ShapeDtypeStruct((K, B), jnp.int32)
+    fn, args = {
+        "lanes": (lambda c, t, mm, *mo: ps.secular_lanes(
+            c, t, mm, *mo, wave=wave), (lk, lk, li, *m, nl)),
+        "frozen": (lambda c, t, mm, *mo: ps.secular_lanes_frozen(
+            c, t, mm, *mo, wave=wave), (lk, lk, li, *m, nl)),
+        "grad": (lambda c, t, mm, *mo: ps.secular_lanes_grad(
+            c, t, mm, *mo, wave=wave), (lk, lk, li, *m, nl)),
+        "refine": (lambda lo, hi, t, mm, *mo: ps.refine_lanes(
+            lo, hi, t, mm, *mo, wave=wave, n_newton=2),
+            (lk, lk, lk, li, *m, nl)),
+    }[kernel]
+    txt = jax.jit(fn).trace(*args).lower(
+        lowering_platforms=("cuda",)).as_text()
+    calls = re.findall(r"custom_call @([^\(]+)\(", txt)
+    assert calls == ["__gpu$xla.gpu.triton"]
+
+
+@pytest.mark.chip
+def test_compiled_kernels_match_interpret(batch, gpu):
+    """On a GPU: the compiled Triton kernel equals its interpret-mode
+    run on the same lanes (signs, truncation, halfspace)."""
+    cs = np.array([[3.0, 3.4, 4.1], [3.2, 3.9, 4.4]], np.float32)
+    model_T, _, c, t, nl = _lanes_inputs(batch, [10.0, 60.0], cs,
+                                         "rayleigh")
+    zero = jnp.zeros(c.shape, jnp.int32)
+    F, bhs, mm = secular_lanes(c, t, zero, *model_T, nl)
+    Fi, bhsi, mmi = secular_lanes(c, t, zero, *model_T, nl, interpret=True)
+    np.testing.assert_array_equal(np.asarray(mm), np.asarray(mmi))
+    np.testing.assert_allclose(np.asarray(bhs), np.asarray(bhsi), rtol=1e-6)
+    assert np.all(np.sign(np.asarray(F)) == np.sign(np.asarray(Fi)))

@@ -1,6 +1,6 @@
 """Statistical posterior parity: device batched sampler vs host oracle.
 
-THE flagship claim of the TPU rebuild (VERDICT r2 weak #1 / next #1):
+THE flagship claim of this rebuild:
 the batched device sampler reproduces the host-sequential oracle's
 *posterior* — not just its per-step algebra.  The two samplers differ
 by design in proposal RNG (jax.random truncated normals vs

@@ -2,7 +2,7 @@
 
 The device priors were rewritten from associative scans + dynamic
 gathers to the O(n^2) adjacent-flagged-pair matrix form
-(priors._adjacent_flagged_pairs) for TPU fusion; these tests pin the
+(priors._adjacent_flagged_pairs) so they fuse; these tests pin the
 semantics against the host reference implementations on randomized
 signals, including masked (thin-layer-dropped) nodes.
 """
@@ -69,7 +69,7 @@ def test_cwt_oscillation_matches_host(seed):
 
 @pytest.mark.parametrize("seed,n,H", [
     # fine dz -> host width 30//dz > 32: the old static max_width=32 cap
-    # regime (VERDICT r3 #7); n > 320 was where the cap truncated
+    # regime; n > 320 was where the cap truncated
     (0, 400, 100.0), (1, 400, 100.0), (2, 350, 60.0), (3, 330, 40.0),
     # coarse sanity alongside
     (4, 340, 150.0),
